@@ -1,0 +1,98 @@
+"""Sort configuration for the PyTorch/CUDA port — the counterpart of
+``cuda.radixsort_tpu.config`` (itself the analogue of CUB's policy hub,
+``dispatch/tuning/tuning_radix_sort.cuh``).
+
+A small frozen dataclass holds the digit width, the CUDA tile geometry of
+the stage kernel and the engine. ``preset()`` is keyed on the card's compute
+capability. Nothing here reads an environment variable.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+ENGINES = ("auto", "radix", "bitonic")
+
+_BITONIC_TODO = ("the bitonic network engine is not ported yet "
+                 "(ROADMAP.md, queue A item 3 / queue B items 4-5)")
+
+
+@dataclasses.dataclass(frozen=True)
+class SortConfig:
+    """Static configuration of one sort.
+
+    Attributes:
+      radix_bits: digit width of one counting pass, 2, 4 or 8 (8 = 256 bins,
+        the contract's digit width: a u32 sort is 4 passes).
+      block_threads: threads per block of the stage kernels (a multiple of
+        32, at most 512 so the per-warp bucket table fits 48 KB of shared
+        memory at 8-bit digits).
+      items_per_thread: keys each thread ranks per tile; a tile holds
+        ``block_threads * items_per_thread`` keys.
+      engine: 'auto' or 'radix' (the LSD pipeline). 'bitonic' raises
+        NotImplementedError until the network engine is ported.
+    """
+
+    radix_bits: int = 8
+    block_threads: int = 256
+    items_per_thread: int = 16
+    engine: str = "auto"
+
+    def __post_init__(self):
+        if self.radix_bits not in (2, 4, 8):
+            raise ValueError(f"radix_bits must be 2, 4 or 8; got {self.radix_bits}")
+        if (self.block_threads % 32 or not 32 <= self.block_threads <= 512):
+            raise ValueError("block_threads must be a multiple of 32 in "
+                             f"[32, 512]; got {self.block_threads}")
+        if not 1 <= self.items_per_thread <= 64:
+            raise ValueError("items_per_thread must be in [1, 64]; got "
+                             f"{self.items_per_thread}")
+        if self.engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}; got {self.engine!r}")
+
+    @property
+    def num_bins(self) -> int:
+        return 1 << self.radix_bits
+
+    @property
+    def tile_elems(self) -> int:
+        return self.block_threads * self.items_per_thread
+
+    def replace(self, **kw) -> "SortConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# Per-architecture presets, keyed on torch.cuda.get_device_capability().
+# (9, 0): H100 / H200: 256 threads x 16 keys = 4096-key tiles, 8-bit digits.
+# `chip_smoke.py --profile` sweeps radix_bits 4/8 and items_per_thread
+# 8/16/32 on the card; this pair was the fastest there (PERF.md).
+_PRESETS = {
+    (9, 0): dict(radix_bits=8, block_threads=256, items_per_thread=16),
+}
+
+
+def preset(capability: tuple[int, int] | None = None) -> SortConfig:
+    """The preset for a compute capability (default: the current card's).
+
+    Without a card the (9, 0) geometry is returned: on the CPU the wrappers
+    run their plain versions and the geometry is never used."""
+    if capability is None:
+        capability = (torch.cuda.get_device_capability()
+                      if torch.cuda.is_available() else (9, 0))
+    capability = tuple(capability)
+    if capability not in _PRESETS:
+        raise ValueError(f"no preset for compute capability {capability}; "
+                         f"known: {sorted(_PRESETS)}")
+    return SortConfig(**_PRESETS[capability])
+
+
+def resolve(config: SortConfig | None = None) -> SortConfig:
+    """Resolve 'auto' to the engine that runs: the radix pipeline."""
+    cfg = config or preset()
+    if cfg.engine == "bitonic":
+        raise NotImplementedError(_BITONIC_TODO)
+    if cfg.engine == "auto":
+        cfg = cfg.replace(engine="radix")
+    return cfg

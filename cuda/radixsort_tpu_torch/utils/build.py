@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels (``cuda/radixsort_tpu_torch/csrc``).
+
+Counterpart of the loader in ``cuda/radixsort_tpu/utils/native.py``, with
+one difference on purpose: a missing ``nvcc`` or a failed build raises
+``RuntimeError`` (with nvcc's stderr) instead of returning None. There is no
+fallback for a CUDA tensor.
+
+All ``csrc/*.cu`` files compile with one nvcc call into one shared library
+with a plain C interface under ``build/radixsort_tpu_torch/`` at the root of
+the checkout. The file name carries a hash of the sources' content and the
+flags, so an edited source rebuilds and an unchanged one loads at once.
+Every pointer and the stream are passed as ``ctypes.c_void_p``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_REPO = os.path.dirname(os.path.dirname(_PKG))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_REPO, "build", "radixsort_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+# C entry points: name -> argtypes. Each returns a cudaError_t as int.
+_SIGNATURES = {
+    # keys, n, n_stages, width, out, grid, threads, stream
+    "rs_digit_histograms": [_P, _I64, _I, _I, _P, _I, _I, _P],
+    # in_planes (void**), out_planes (void**), n_planes, gbase, n, shift,
+    # width, counts, offsets, threads, items, stream
+    "rs_partition_stage": [_P, _P, _I, _P, _I64, _I, _I, _P, _P, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+            "of cuda.radixsort_tpu_torch cannot be built on this machine")
+    return nvcc
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _digest(srcs: list[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _build() -> str:
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    so = os.path.join(BUILD_DIR, f"libradixsort_{_digest(srcs)}.so")
+    if os.path.exists(so):
+        return so
+    nvcc = _find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library; builds it at first use. Raises
+    RuntimeError if it cannot be built."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(_build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.rs_error_string.argtypes = [_I]
+            lib.rs_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        msg = library().rs_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} at launch ({msg})")

@@ -1,0 +1,77 @@
+"""Package boundary of the port: it imports without JAX, never names it,
+and its kernel build fails loudly where nvcc is absent."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import cuda.radixsort_tpu_torch as rt
+from cuda.radixsort_tpu_torch.kernels import histogram, stage
+from cuda.radixsort_tpu_torch.utils import build
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "cuda" / "radixsort_tpu_torch"
+
+
+def test_imports_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['jaxlib'] = None; "
+            "import cuda.radixsort_tpu_torch as rt; "
+            "import cuda.radixsort_tpu_torch.utils.convert, "
+            "cuda.radixsort_tpu_torch.utils.profiling; "
+            "import torch; "
+            "print(rt.sort(torch.tensor([3, 1, 2])).tolist())")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[1, 2, 3]"
+
+
+def test_no_source_file_names_jax():
+    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)", re.M)
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 10
+    for path in files:
+        assert not pattern.search(path.read_text()), path
+
+
+def test_build_raises_without_nvcc():
+    if build.shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is present on this machine")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.library()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build._build()
+
+
+def test_every_kernel_has_a_source_and_a_counter():
+    names = {os.path.basename(p) for p in build.sources()}
+    assert names == {"histogram.cu", "stage.cu"}
+    for mod in (histogram, stage):
+        assert isinstance(mod.LAUNCHES, int)
+    for src in build.sources():
+        text = open(src).read()
+        assert "Replaces: cuda/radixsort_tpu/kernels/" in text
+        assert re.search(r'extern "C" int rs_\w+', text)
+
+
+def test_non_cpu_device_never_falls_back():
+    keys = torch.empty(8, dtype=torch.uint32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        histogram.digit_histograms(keys, n_stages=4, width=8)
+    gb = torch.empty(256, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        stage.partition_stage([keys], gb, shift=0, width=8)
+
+
+def test_version_and_surface():
+    assert rt.__version__
+    for name in ("sort", "sort_pairs", "argsort", "sort_struct",
+                 "SortConfig", "preset", "resolve"):
+        assert hasattr(rt, name)

@@ -1,0 +1,232 @@
+"""The port's sort slice vs the JAX package, end to end, bit-exact.
+
+The JAX side runs its default CPU configuration, a stable lax.sort, which
+any stable sort reproduces bit for bit; the port runs its radix pipeline
+through the kernels' plain versions. Floats compare on raw bits, so -0.0
+and NaN compare exactly. N is not a multiple of any tile size."""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import cuda.radixsort_tpu as rs
+import cuda.radixsort_tpu_torch as rt
+from cuda.radixsort_tpu_torch.utils.convert import (config_from_jax,
+                                                    from_numpy, to_numpy,
+                                                    tree_from_numpy)
+
+N = 3001
+KEY_DTYPES = [np.uint32, np.int32, np.float32, np.uint64, np.int64,
+              np.float64, np.uint8, np.int16, np.float16, ml_dtypes.bfloat16]
+
+
+def _raw(a):
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return a
+    return a.view(f"uint{a.dtype.itemsize * 8}")
+
+
+def _eq(got, want):
+    np.testing.assert_array_equal(_raw(to_numpy(got)), _raw(want))
+
+
+def make_keys(dtype, n=N, seed=0, distinct=None):
+    """Random keys; floats from random bit patterns (NaNs, denormals
+    included) plus explicit +-0.0, +-inf, +-NaN. ``distinct`` limits the
+    number of distinct values, to exercise stability."""
+    dtype = np.dtype(dtype)
+    rng = np.random.default_rng(seed)
+    width = dtype.itemsize * 8
+    u = np.dtype(f"uint{width}")
+    bits = rng.integers(0, 2**63, size=n, dtype=np.uint64)
+    if width == 64:
+        bits = bits | (rng.integers(0, 2, size=n, dtype=np.uint64)
+                       << np.uint64(63))
+    bits = bits.astype(u)
+    if distinct is not None:
+        bits = rng.choice(np.unique(bits)[:distinct], size=n)
+    keys = bits.view(dtype).copy()
+    if dtype.kind == "f" and n >= 8:
+        keys[:6] = np.array([0.0, -0.0, np.inf, -np.inf, np.nan,
+                             -np.nan], dtype=np.float64).astype(dtype)
+        rng.shuffle(keys)
+    return keys
+
+
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("dtype", KEY_DTYPES, ids=lambda d: np.dtype(d).name)
+def test_sort_matches_jax(dtype, descending):
+    keys = make_keys(dtype, seed=3)
+    want = np.asarray(rs.sort(jnp.asarray(keys), descending=descending))
+    _eq(rt.sort(from_numpy(keys), descending=descending), want)
+
+
+@pytest.mark.parametrize("pay_dtype", [np.uint32, np.int32, np.float32,
+                                       np.bool_, np.int8, np.int64,
+                                       np.float64])
+def test_sort_pairs_payloads(pay_dtype):
+    rng = np.random.default_rng(7)
+    keys = make_keys(np.uint32, seed=5, distinct=40)  # many ties
+    pay = make_keys(pay_dtype, seed=11) if pay_dtype != np.bool_ else (
+        rng.random(N) < 0.5)
+    idx = np.arange(N, dtype=np.int32)  # proves stability
+    jk, (jp, ji) = rs.sort_pairs(jnp.asarray(keys),
+                                 (jnp.asarray(pay), jnp.asarray(idx)))
+    tk, (tp, ti) = rt.sort_pairs(from_numpy(keys),
+                                 (from_numpy(pay), from_numpy(idx)))
+    _eq(tk, np.asarray(jk))
+    _eq(tp, np.asarray(jp))
+    _eq(ti, np.asarray(ji))
+    assert tp.dtype == from_numpy(pay).dtype
+
+
+@pytest.mark.parametrize("key_dtype,descending", [
+    (np.uint64, False), (np.int64, True), (np.float64, False),
+    (np.float16, True), (ml_dtypes.bfloat16, False)])
+def test_sort_pairs_wide_and_narrow_keys(key_dtype, descending):
+    keys = make_keys(key_dtype, seed=13, distinct=100)
+    vals = {"f64": make_keys(np.float64, seed=2), "u32": make_keys(np.uint32)}
+    jk, jv = rs.sort_pairs(jnp.asarray(keys),
+                           {k: jnp.asarray(v) for k, v in vals.items()},
+                           descending=descending)
+    tk, tv = rt.sort_pairs(from_numpy(keys), tree_from_numpy(vals),
+                           descending=descending)
+    _eq(tk, np.asarray(jk))
+    for name in vals:
+        _eq(tv[name], np.asarray(jv[name]))
+
+
+@pytest.mark.parametrize("dtype,begin,end", [
+    (np.uint32, 0, 8), (np.int32, 0, 16), (np.uint32, 3, 13),
+    (np.uint64, 28, 36), (np.float64, 0, 40)])
+def test_bit_ranges(dtype, begin, end):
+    keys = make_keys(dtype, seed=17)
+    idx = np.arange(N, dtype=np.uint32)
+    jk, ji = rs.sort_pairs(jnp.asarray(keys), jnp.asarray(idx),
+                           begin_bit=begin, end_bit=end)
+    tk, ti = rt.sort_pairs(from_numpy(keys), from_numpy(idx),
+                           begin_bit=begin, end_bit=end)
+    _eq(tk, np.asarray(jk))
+    _eq(ti, np.asarray(ji))
+    _eq(rt.sort(from_numpy(keys), begin_bit=begin, end_bit=end),
+        np.asarray(rs.sort(jnp.asarray(keys), begin_bit=begin, end_bit=end)))
+
+
+@pytest.mark.parametrize("dtype,descending,end", [
+    (np.uint32, False, None), (np.float32, True, None), (np.int8, False, None),
+    (np.uint64, False, 40)])
+def test_argsort(dtype, descending, end):
+    keys = make_keys(dtype, seed=19, distinct=300)
+    want = np.asarray(rs.argsort(jnp.asarray(keys), descending=descending,
+                                 end_bit=end))
+    got = rt.argsort(from_numpy(keys), descending=descending, end_bit=end)
+    assert got.dtype == torch.int32
+    _eq(got, want)
+
+
+def test_unstable_pairs_multiset_within_key():
+    keys = make_keys(np.uint32, seed=23, distinct=20)
+    pay = make_keys(np.uint32, seed=29)
+    jk, jp = rs.sort_pairs(jnp.asarray(keys), jnp.asarray(pay), stable=False)
+    tk, tp = rt.sort_pairs(from_numpy(keys), from_numpy(pay), stable=False)
+    tk, tp, jk, jp = to_numpy(tk), to_numpy(tp), np.asarray(jk), np.asarray(jp)
+    np.testing.assert_array_equal(tk, jk)
+    # equal as a multiset within each key: sort payloads inside key runs
+    np.testing.assert_array_equal(tp[np.lexsort((tp, tk))],
+                                  jp[np.lexsort((jp, jk))])
+
+
+@pytest.mark.parametrize("n", [0, 1, 2])
+def test_tiny_inputs(n):
+    keys = make_keys(np.int32, n=n, seed=31)
+    pay = np.arange(n, dtype=np.int64)
+    _eq(rt.sort(from_numpy(keys)), np.asarray(rs.sort(jnp.asarray(keys))))
+    tk, tp = rt.sort_pairs(from_numpy(keys), from_numpy(pay))
+    jk, jp = rs.sort_pairs(jnp.asarray(keys), jnp.asarray(pay))
+    _eq(tk, np.asarray(jk))
+    _eq(tp, np.asarray(jp))
+
+
+def test_constant_keys_skip_every_pass():
+    from cuda.radixsort_tpu_torch.kernels import stage
+
+    keys = np.full(N, 0xDEADBEEF, dtype=np.uint32)
+    pay = make_keys(np.float32, seed=37)
+    pay_t = from_numpy(pay)
+    calls = []
+    orig = stage.partition_stage_plain
+    stage.partition_stage_plain = lambda *a, **k: calls.append(1) or orig(*a, **k)
+    try:
+        tk, tp = rt.sort_pairs(from_numpy(keys), pay_t)
+    finally:
+        stage.partition_stage_plain = orig
+    assert calls == []  # every digit puts all keys in one bucket
+    _eq(tk, keys)
+    _eq(tp, pay)
+    assert tp.data_ptr() != pay_t.data_ptr()  # a new tensor, not the input
+
+
+def test_sort_struct_matches_jax():
+    a = make_keys(np.int32, seed=41, distinct=7)
+    b = make_keys(np.float64, seed=43, distinct=50)
+    c = make_keys(np.uint8, seed=47)
+    vals = [make_keys(np.int64, seed=53), make_keys(np.float16, seed=59)]
+    (ja, jb, jc), jv = rs.sort_struct(
+        [jnp.asarray(x) for x in (a, b, c)], [jnp.asarray(v) for v in vals],
+        descending=True)
+    (ta, tb, tc), tv = rt.sort_struct([from_numpy(x) for x in (a, b, c)],
+                                      tree_from_numpy(vals), descending=True)
+    for g, w in zip((ta, tb, tc, *tv), (ja, jb, jc, *jv)):
+        _eq(g, np.asarray(w))
+    assert isinstance(tv, list)
+    keys_only = rt.sort_struct([from_numpy(a), from_numpy(c)])
+    ja2, jc2 = rs.sort_struct([jnp.asarray(a), jnp.asarray(c)])
+    _eq(keys_only[0], np.asarray(ja2))
+    _eq(keys_only[1], np.asarray(jc2))
+
+
+@pytest.mark.parametrize("radix_bits", [2, 4, 8])
+def test_digit_widths(radix_bits):
+    keys = make_keys(np.uint64, seed=61, distinct=500)
+    idx = np.arange(N, dtype=np.int32)
+    jk, ji = rs.sort_pairs(jnp.asarray(keys), jnp.asarray(idx),
+                           begin_bit=5, end_bit=59)
+    cfg = rt.SortConfig(radix_bits=radix_bits)
+    tk, ti = rt.sort_pairs(from_numpy(keys), from_numpy(idx), begin_bit=5,
+                           end_bit=59, config=cfg)
+    _eq(tk, np.asarray(jk))
+    _eq(ti, np.asarray(ji))
+
+
+def test_config():
+    assert rt.resolve(rt.SortConfig()).engine == "radix"
+    assert rt.preset((9, 0)).radix_bits == 8
+    assert rt.preset((9, 0)).tile_elems == 256 * 16
+    with pytest.raises(ValueError):
+        rt.preset((8, 0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rt.sort(torch.zeros(4, dtype=torch.int32),
+                config=rt.SortConfig(engine="bitonic"))
+    with pytest.raises(ValueError):
+        rt.SortConfig(radix_bits=5)
+    with pytest.raises(ValueError):
+        rt.SortConfig(block_threads=1024)
+    assert config_from_jax(rs.SortConfig(engine="pallas", radix_bits=3)) == \
+        rt.SortConfig(radix_bits=2, engine="radix")
+    assert config_from_jax(rs.SortConfig()).engine == "auto"
+
+
+def test_rejects_mismatched_values():
+    keys = from_numpy(make_keys(np.uint32, n=10))
+    with pytest.raises(ValueError):
+        rt.sort_pairs(keys, torch.zeros(9))
+    with pytest.raises(ValueError):
+        rt.sort(keys.reshape(2, 5))
+    with pytest.raises(ValueError):
+        rt.sort(keys, begin_bit=4, end_bit=40)
+    huge = torch.zeros(1, dtype=torch.uint8).expand(1 << 31)  # no memory
+    with pytest.raises(ValueError, match="limited"):
+        rt.sort(huge)
