@@ -88,6 +88,18 @@ def preset(capability: tuple[int, int] | None = None) -> SortConfig:
     return SortConfig(**_PRESETS[capability])
 
 
+def for_partition(cfg: SortConfig, bits: int | None = None) -> SortConfig:
+    """The configuration of a partition-class op (filter, selection vector)
+    whose keys hold ``bits`` significant bits. The network engine cannot
+    sort a bit range, so 'bitonic' becomes 'radix'; keys of at most 2 bits
+    take 2-bit digits, one counting pass into 4 buckets."""
+    if cfg.engine == "bitonic":
+        cfg = cfg.replace(engine="radix")
+    if bits is not None and bits <= 2:
+        cfg = cfg.replace(radix_bits=2)
+    return cfg
+
+
 def resolve(config: SortConfig | None = None) -> SortConfig:
     """Resolve 'auto' to the engine that runs: the radix pipeline."""
     cfg = config or preset()

@@ -198,12 +198,15 @@ def sort(keys: torch.Tensor, *, descending: bool = False,
 def sort_pairs(keys: torch.Tensor, values, *, descending: bool = False,
                begin_bit: int | None = None, end_bit: int | None = None,
                config: config_lib.SortConfig | None = None,
-               stable: bool = True):
+               stable: bool = True, unique_leading_payload: bool = False):
     """Key-value radix sort. ``values``: a tensor, or a list, tuple or dict
     of tensors (nested), each of leading dimension len(keys). Always stable
     (``stable=False`` is accepted for parity and gives the stable result).
-    Parity: DeviceRadixSort::SortPairs."""
-    del stable  # the radix pipeline is stable by construction
+    ``unique_leading_payload=True`` says the first value leaf is a unique
+    u32 row tag; the JAX network engine then orders ties by that tag. The
+    result here is the stable one, which is the same whenever the tag
+    increases in input order. Parity: DeviceRadixSort::SortPairs."""
+    del stable, unique_leading_payload  # stable by construction
     cfg = config_lib.resolve(config)
     if keys.dim() != 1:
         raise ValueError(f"keys must be 1-D; got shape {tuple(keys.shape)}")

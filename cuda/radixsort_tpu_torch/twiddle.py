@@ -10,6 +10,8 @@ sort above +inf, negative NaNs below -inf.
 CPU torch has no shifts, compares or ``where`` on uint16/32/64, so every
 function works on the same-width *signed* view of the bits and returns the
 unsigned view. Only XOR, AND, OR, NOT, signed compares and ``view`` are used.
+``where``, ``cat``, ``take`` and ``flip`` move tensors of any dtype the same
+way.
 """
 
 from __future__ import annotations
@@ -50,14 +52,57 @@ def unsigned_dtype(dtype: torch.dtype) -> torch.dtype:
     return _UNSIGNED_OF[dtype]
 
 
+def signed_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The signed integer dtype of the same width."""
+    return _SIGNED_OF_WIDTH[bit_width(dtype)]
+
+
 def signed_view(bits: torch.Tensor) -> torch.Tensor:
     """Same-width signed view of any 1/2/4/8-byte tensor (no copy)."""
-    return bits.view(_SIGNED_OF_WIDTH[bit_width(bits.dtype)])
+    return bits.view(signed_dtype(bits.dtype))
 
 
-def _sign_min(width: int) -> int:
+def sign_min(width: int) -> int:
     """The sign bit as a value of the signed view (its minimum)."""
     return -(1 << (width - 1))
+
+
+# ---------------------------------------------------------------------------
+# moves that keep the bits, for every dtype
+# ---------------------------------------------------------------------------
+# torch implements only part of its operators for uint16/32/64 (CPU torch
+# has no `<`, `flip` or `scatter` on them). These helpers move such tensors
+# through their signed views of the same bits; other dtypes go straight to
+# torch.
+
+PARTIAL = (torch.uint16, torch.uint32, torch.uint64)
+
+
+def full_view(t: torch.Tensor) -> torch.Tensor:
+    """t, or for a dtype in PARTIAL its signed view: a view with the same
+    bits that torch's operators all take (equality is kept)."""
+    return signed_view(t) if t.dtype in PARTIAL else t
+
+
+def where(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.where(cond, a, b) for tensors a and b of one dtype."""
+    return torch.where(cond, full_view(a), full_view(b)).view(a.dtype)
+
+
+def cat(tensors) -> torch.Tensor:
+    """torch.cat of 1-D tensors of one dtype."""
+    tensors = list(tensors)
+    return torch.cat([full_view(t) for t in tensors]).view(tensors[0].dtype)
+
+
+def take(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """t[index] for an integer index tensor."""
+    return full_view(t)[index].view(t.dtype)
+
+
+def flip(t: torch.Tensor) -> torch.Tensor:
+    """t reversed along its first axis."""
+    return torch.flip(full_view(t), [0]).view(t.dtype)
 
 
 def twiddle_in(keys: torch.Tensor, descending: bool = False) -> torch.Tensor:
@@ -65,7 +110,7 @@ def twiddle_in(keys: torch.Tensor, descending: bool = False) -> torch.Tensor:
     d = keys.dtype
     u = unsigned_dtype(d)
     width = bit_width(d)
-    sign = _sign_min(width)
+    sign = sign_min(width)
     raw = signed_view(keys)
     if d in _UNSIGNED:
         bits = raw.clone()
@@ -88,7 +133,7 @@ def twiddle_out(bits: torch.Tensor, dtype: torch.dtype,
     if bits.dtype.itemsize != u.itemsize:
         raise TypeError(f"{bits.dtype} bits cannot hold {dtype} keys")
     width = bit_width(dtype)
-    sign = _sign_min(width)
+    sign = sign_min(width)
     b = signed_view(bits)
     if descending:
         b = ~b

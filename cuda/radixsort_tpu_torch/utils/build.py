@@ -5,7 +5,8 @@ one difference on purpose: a missing ``nvcc`` or a failed build raises
 ``RuntimeError`` (with nvcc's stderr) instead of returning None. There is no
 fallback for a CUDA tensor.
 
-All ``csrc/*.cu`` files compile with one nvcc call into one shared library
+Each ``csrc/*.cu`` file compiles in its own nvcc process, all started
+together, and one more nvcc call links the objects into one shared library
 with a plain C interface under ``build/radixsort_tpu_torch/`` at the root of
 the checkout. The file name carries a hash of the sources' content and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
@@ -27,7 +28,7 @@ _REPO = os.path.dirname(os.path.dirname(_PKG))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_REPO, "build", "radixsort_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +40,8 @@ _SIGNATURES = {
     # in_planes (void**), out_planes (void**), n_planes, gbase, n, shift,
     # width, counts, offsets, threads, items, stream
     "rs_partition_stage": [_P, _P, _I, _P, _I64, _I, _I, _P, _P, _I, _I, _P],
+    # values, flags, out, n, dtype, op, n_tiles, agg, aflag, carry, stream
+    "rs_segmented_scan": [_P, _P, _P, _I64, _I, _I, _I64, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -79,13 +82,35 @@ def _build() -> str:
     nvcc = _find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stderr}")
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    try:
+        for cmd, proc in zip(cmds, procs):
+            _run_checked(cmd, proc)
+        link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                "-o", tmp, *objs]
+        _run_checked(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True))
+    finally:
+        for proc in procs:
+            proc.kill()  # a no-op for one that has ended; none outlives a failure
+            proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so)
     return so
+
+
+def _run_checked(cmd: list[str], proc: subprocess.Popen) -> None:
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{err}")
 
 
 def library() -> ctypes.CDLL:

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import cuda.radixsort_tpu_torch as rt
-from cuda.radixsort_tpu_torch.kernels import histogram, stage
+from cuda.radixsort_tpu_torch.kernels import histogram, scan, stage
 from cuda.radixsort_tpu_torch.utils import build
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -23,7 +23,8 @@ def test_imports_with_jax_blocked():
             "sys.modules['jaxlib'] = None; "
             "import cuda.radixsort_tpu_torch as rt; "
             "import cuda.radixsort_tpu_torch.utils.convert, "
-            "cuda.radixsort_tpu_torch.utils.profiling; "
+            "cuda.radixsort_tpu_torch.utils.profiling, "
+            "cuda.radixsort_tpu_torch.models.flagships; "
             "import torch; "
             "print(rt.sort(torch.tensor([3, 1, 2])).tolist())")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -52,8 +53,8 @@ def test_build_raises_without_nvcc():
 
 def test_every_kernel_has_a_source_and_a_counter():
     names = {os.path.basename(p) for p in build.sources()}
-    assert names == {"histogram.cu", "stage.cu"}
-    for mod in (histogram, stage):
+    assert names == {"histogram.cu", "scan.cu", "stage.cu"}
+    for mod in (histogram, scan, stage):
         assert isinstance(mod.LAUNCHES, int)
     for src in build.sources():
         text = open(src).read()
@@ -68,10 +69,16 @@ def test_non_cpu_device_never_falls_back():
     gb = torch.empty(256, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         stage.partition_stage([keys], gb, shift=0, width=8)
+    flags = torch.empty(8, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        scan.segmented_scan(keys, flags, "sum")
 
 
 def test_version_and_surface():
     assert rt.__version__
     for name in ("sort", "sort_pairs", "argsort", "sort_struct",
-                 "SortConfig", "preset", "resolve"):
+                 "SortConfig", "preset", "resolve", "filter_columns",
+                 "selection_vector", "join", "join_count", "join_expand",
+                 "groupby", "groupby_multi", "groupby_quantile",
+                 "segmented_scan", "scan_by_key"):
         assert hasattr(rt, name)

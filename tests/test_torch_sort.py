@@ -169,6 +169,25 @@ def test_constant_keys_skip_every_pass():
     assert tp.data_ptr() != pay_t.data_ptr()  # a new tensor, not the input
 
 
+def test_unique_leading_payload_is_the_stable_result():
+    # the join's (position tag, value) companions: a unique u32 tag first
+    keys = make_keys(np.uint32, seed=71, distinct=30)
+    tag = np.arange(N, dtype=np.uint32) | np.uint32(1 << 31) * (
+        np.arange(N) % 7 == 0)
+    vals = make_keys(np.int32, seed=73)
+    jk, (jt, jv) = rs.sort_pairs(jnp.asarray(keys),
+                                 (jnp.asarray(tag), jnp.asarray(vals)),
+                                 unique_leading_payload=True)
+    tk, (tt, tv) = rt.sort_pairs(from_numpy(keys),
+                                 (from_numpy(tag), from_numpy(vals)),
+                                 unique_leading_payload=True)
+    for g, w in ((tk, jk), (tt, jt), (tv, jv)):
+        _eq(g, np.asarray(w))
+    _, (st, _) = rt.sort_pairs(from_numpy(keys),
+                               (from_numpy(tag), from_numpy(vals)))
+    _eq(tt, to_numpy(st))
+
+
 def test_sort_struct_matches_jax():
     a = make_keys(np.int32, seed=41, distinct=7)
     b = make_keys(np.float64, seed=43, distinct=50)
