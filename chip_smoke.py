@@ -2,15 +2,20 @@
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py              # from the root of the repository
-    python3 chip_smoke.py --profile    # also: phase 7 below
+    python3 chip_smoke.py --profile    # also: phase 8 below
 
 Phases, each of which fails loudly (non-zero exit, no result line):
   1. device: a CUDA card must be present; its name and power limit are printed;
-  2. build: the three CUDA kernels are built from the repository's own sources;
+  2. build: the five CUDA kernels are built from the repository's own sources;
   3. kernels: digit_histograms and partition_stage on the card against their
      plain PyTorch versions on the same inputs, bit for bit (tolerance 0), and
      segmented_scan against its plain version: integers and min/max bit for
-     bit, a float32 sum within SCAN_F32_TOL of its segment's sum of |x|;
+     bit, a float32 sum within SCAN_F32_TOL of its segment's sum of |x|; the
+     network's tile kernel (sort and merge modes) and cross kernel, alone and
+     as whole network sorts and merges, against the plain network bit for
+     bit (1-4 planes, n_cmp 1, 2, 3, -1, -2 and all-compare, 2^10..2^28 rows,
+     the main path's 2^28 shapes included, heavy ties on the tie-safe
+     cases); each kernel's registers and spills as ptxas reports them;
   4. slice: sort (2^24 u32 keys) and stable sort_pairs (2^28 u64 keys + u32
      payload) and smaller cases against a torch.sort oracle on the card, bit
      for bit, with the kernels' launch counters read around each path;
@@ -20,10 +25,22 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      models/flagships.py, against oracles built from torch.sort,
      torch.searchsorted, torch.unique and index_add_: bit for bit, the mean
      within MEAN_TOL; launch counters read around each path;
-  6. times: CUDA-event medians of every path and of its torch oracle, and of
-     each kernel beside its plain version and its one-call torch yardstick;
-  7. (--profile only) a torch.profiler breakdown of every path with the
-     device's idle share, and a sweep of radix_bits and items_per_thread.
+  6. network: the same entry points with SortConfig(engine="bitonic"): (a)
+     sort 2^24 u32, (b) stable sort_pairs 2^28 u64+u32, (c) the same with
+     stable=False (keys bit for bit, (key, payload) multiset equal; a 2^24
+     heavy-tie case bit for bit against the plain network), (d) the FK join
+     (must take the split-sort-merge route with the tag comparand), (e)
+     merge_sorted_pairs of two 2^27-row runs
+     (against the rank-scatter route and a stable torch.sort), (f)
+     segmented_sort of 2^24 keys in 4096 ragged segments; tile and cross
+     launches must be > 0 on each, partition_stage 0 on the pure-sort paths;
+  7. times: CUDA-event medians of every path and of its torch oracle (the
+     network paths also beside the radix engine), of (d)'s sort on the
+     split-sort-merge route beside the padded network, and of each kernel
+     beside its plain version and its one-call torch yardstick;
+  8. (--profile only) a torch.profiler breakdown of every path (the network
+     paths included) with the device's idle share, and a sweep of radix_bits
+     and items_per_thread.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record. The JAX package is never imported.
@@ -35,6 +52,7 @@ import importlib
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +74,14 @@ MEAN_TOL = 1e-6      # relative, of a grouped mean (a mean of 0 exactly)
 FK = "FK inner join 2^27 x 2^24"
 GROUPBY = "group-by sum and count 2^26"
 OUTER = "full outer join -> mean 2^22 x 2^20"
+N_SEGMENTS = 4096
+NET_A = "(a) network sort 2^24 u32"
+NET_B = "(b) network stable sort_pairs 2^28 u64+u32"
+NET_C = "(c) network sort_pairs stable=False 2^28 u64+u32"
+NET_D = "(d) network FK inner join 2^27 x 2^24"
+NET_E = "(e) network merge_sorted_pairs 2^27 + 2^27 u32+u32"
+NET_F = "(f) network segmented_sort 2^24 u32, 4096 segments"
+NET_PATHS = (NET_A, NET_B, NET_C, NET_D, NET_E, NET_F)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12      # float32 outside the tensor cores, same source
 
@@ -101,30 +127,48 @@ def oracle_order(bits_u: torch.Tensor) -> torch.Tensor:
     return torch.sort(k, stable=True).indices
 
 
-KERNELS = ("digit_histograms", "partition_stage", "segmented_scan")
+KERNELS = ("digit_histograms", "partition_stage", "segmented_scan",
+           "bitonic_tile", "bitonic_cross")
 SORT_KERNELS = KERNELS[:2]
+NETWORK = KERNELS[3:]
+RADIX_OPERATOR = KERNELS[:3]
+PEAK_BYTES = [0]  # the largest device-memory peak seen by run_counted
 
 
 def kernel_modules() -> dict:
-    from cuda.radixsort_tpu_torch.kernels import histogram, scan, stage
+    """kernel -> (module, name of its launch counter)."""
+    from cuda.radixsort_tpu_torch.kernels import bitonic, histogram, scan, stage
 
-    return dict(zip(KERNELS, (histogram, stage, scan)))
+    return {"digit_histograms": (histogram, "LAUNCHES"),
+            "partition_stage": (stage, "LAUNCHES"),
+            "segmented_scan": (scan, "LAUNCHES"),
+            "bitonic_tile": (bitonic, "TILE_LAUNCHES"),
+            "bitonic_cross": (bitonic, "CROSS_LAUNCHES")}
 
 
-def run_counted(path: str, fn, needs, launches: dict):
+def run_counted(path: str, fn, needs, launches: dict, forbid=()):
     """Run one main path with every launch counter set to 0 just before it
-    and read just after it; fail if a kernel in ``needs`` never launched.
-    Adds the counts to ``launches`` (kernel -> sum over the paths)."""
+    and read just after it; fail if a kernel in ``needs`` never launched or
+    one in ``forbid`` did. Adds the counts to ``launches`` (kernel -> sum
+    over the paths) and logs the path's peak device memory."""
     mods = kernel_modules()
     torch.cuda.synchronize()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    PEAK_BYTES[0] = max(PEAK_BYTES[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    for m, attr in mods.values():
+        setattr(m, attr, 0)
     out = fn()
     torch.cuda.synchronize()
-    counts = {k: m.LAUNCHES for k, m in mods.items()}
-    log(f"[launches] {path}: {counts}")
+    counts = {k: getattr(m, attr) for k, (m, attr) in mods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    PEAK_BYTES[0] = max(PEAK_BYTES[0], peak)
+    log(f"[launches] {path}: {counts}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
     expect(all(counts[k] > 0 for k in needs),
            f"{path}: a kernel of the path was never launched: {counts}")
+    expect(all(counts[k] == 0 for k in forbid),
+           f"{path}: launched {[k for k in forbid if counts[k]]}, which the "
+           f"path must not reach: {counts}")
     for k, c in counts.items():
         launches[k] = launches.get(k, 0) + c
     return out
@@ -191,6 +235,24 @@ def load_port():
     return mod
 
 
+def ptxas_kernels(report: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) for each
+    entry function of one source's ``ptxas -v`` report."""
+    rows, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            rows.append([name, None, None, None])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and rows and rows[-1][0] == name:
+            rows[-1][2:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1][0] == name:
+            rows[-1][1] = int(m.group(1))
+    return [tuple(r) for r in rows]
+
+
 def phase_build() -> float:
     from cuda.radixsort_tpu_torch.utils import build
 
@@ -199,6 +261,20 @@ def phase_build() -> float:
     secs = time.perf_counter() - t0
     log(f"[build] {len(build.sources())} sources -> {build.BUILD_DIR} in "
         f"{secs:.1f} s")
+    if not build.PTXAS_REPORT:
+        log("[build] library loaded from an earlier build: no ptxas report")
+    for src, report in sorted(build.PTXAS_REPORT.items()):
+        rows = ptxas_kernels(report)
+        expect(rows and all(None not in r for r in rows),
+               f"ptxas report of {src}: no registers or spills read")
+        log(f"[build] ptxas {src}: {len(rows)} kernels, at most "
+            f"{max(r[1] for r in rows)} registers, spill stores "
+            f"{sum(r[2] for r in rows)} / loads {sum(r[3] for r in rows)} "
+            f"bytes in all")
+        if src == "bitonic.cu":
+            for name, regs, st, ld in rows:
+                log(f"[build]   {name}: {regs} registers, spill stores {st} "
+                    f"/ loads {ld} bytes")
     return secs
 
 
@@ -503,16 +579,11 @@ def operator_paths(gen: torch.Generator) -> dict:
     }
 
 
-def phase_operators(gen: torch.Generator, launches: dict) -> dict:
-    """Each operator path once, counted, against its oracle. Returns the
-    largest relative error of the grouped mean."""
-    paths = operator_paths(gen)
-    errs = {}
-
-    name = FK
-    fn, args, _, oracle = paths[name]
-    ok, ov, oi, count = run_counted(name, lambda: fn(*args), KERNELS, launches)
-    wk, wv, wi, wcount, bs = oracle(*args)
+def check_fk(name, out, args) -> None:
+    """The FK inner join's (keys, vals, probe_idx, count) against
+    oracle_fk_join, bit for bit, tail rows included."""
+    ok, ov, oi, count = out
+    wk, wv, wi, wcount, bs = oracle_fk_join(*args)
     expect(count.dim() == 0 and count.dtype == torch.int32
            and int(count) == wcount, f"{name}: count {int(count)} != {wcount}")
     c = wcount
@@ -528,13 +599,25 @@ def phase_operators(gen: torch.Generator, launches: dict) -> dict:
     expect(tail_ok, f"{name}: the tail is not the build rows in key order")
     log(f"[operators] {name}: ok, ov, oi, count == oracle bit for bit "
         f"(count {c}, tail included)")
-    del ok, ov, oi, wk, wv, wi, bs, paths[name]
+
+
+def phase_operators(gen: torch.Generator, launches: dict) -> dict:
+    """Each operator path once, counted, against its oracle. Returns the
+    largest relative error of the grouped mean."""
+    paths = operator_paths(gen)
+    errs = {}
+
+    name = FK
+    fn, args, _, _ = paths[name]
+    out = run_counted(name, lambda: fn(*args), RADIX_OPERATOR, launches)
+    check_fk(name, out, args)
+    del out, paths[name]
     torch.cuda.empty_cache()
 
     name = GROUPBY
     fn, args, _, oracle = paths[name]
     (gk, gs, gc), (ck, cc, ccount) = run_counted(name, lambda: fn(*args),
-                                                 KERNELS, launches)
+                                                 RADIX_OPERATOR, launches)
     wk, ws, wc = oracle(*args)
     c = wk.numel()
     expect(int(gc) == c and int(ccount) == c,
@@ -551,7 +634,8 @@ def phase_operators(gen: torch.Generator, launches: dict) -> dict:
 
     name = OUTER
     fn, args, _, oracle = paths[name]
-    gk, gm, gcount = run_counted(name, lambda: fn(*args), KERNELS, launches)
+    gk, gm, gcount = run_counted(name, lambda: fn(*args), RADIX_OPERATOR,
+                                 launches)
     wk, wm = oracle(*args)
     c = wk.numel()
     expect(int(gcount) == c, f"{name}: {int(gcount)} groups, oracle {c}")
@@ -569,8 +653,330 @@ def phase_operators(gen: torch.Generator, launches: dict) -> dict:
     return errs
 
 
+# (planes, n_cmp, logn, heavy ties); n_cmp > 0 with ride planes gets a
+# permutation as its last comparand, so the order is total
+NETWORK_SORTS = [(1, 1, 10, False), (1, 1, 24, False), (1, 1, 20, True),
+                 (2, 2, 16, False), (2, 1, 22, False), (2, -1, 20, True),
+                 (2, 2, 24, True), (3, 3, 18, True), (3, -2, 22, True),
+                 (3, 2, 24, False), (3, -1, 12, True), (4, 3, 24, False),
+                 (4, -2, 21, True), (4, -1, 17, True), (4, 4, 23, True),
+                 (4, 1, 14, False)]
+# (planes, n_cmp, logn, heavy ties, log_block)
+# the last is path (e)'s top merge level: 2^28 rows of (key, source
+# index, payload)
+NETWORK_MERGES = [(1, 1, 24, False, 23), (3, 2, 22, False, 12),
+                  (3, -2, 20, True, 16), (4, 3, 23, False, 9),
+                  (2, -1, 10, True, 5), (3, 2, 28, False, 27)]
+# the same kernels on a small geometry: more cross passes, narrow strides;
+# planes -> (log_t, c_max) for plan_passes
+SMALL_GEOMETRY = {1: (10, 3), 2: (10, 2), 3: (10, 2), 4: (10, 1)}
+NETWORK_SMALL = [(1, 1, 18, False), (4, -2, 16, True), (2, 2, 20, True)]
+# (kernel, planes, n_cmp, logn, keyword arguments) of direct kernel calls;
+# the 2^28 ones at the preset geometry of the main path's shapes: (b) is 4
+# planes with n_cmp 3, (c) 3 planes tie-safe (n_cmp -2, network tile 2^15),
+# (d)'s sort and (e)'s merge 3 planes with n_cmp 2; the cross passes are
+# the top level's widest span
+NETWORK_DIRECT = [
+    ("tile sort mode", 1, 1, 24, dict(log_t=15, k_first=1, k_last=15,
+                                      net_tile=16)),
+    ("tile sort mode", 4, 4, 24, dict(log_t=13, k_first=1, k_last=13,
+                                      net_tile=15)),
+    ("tile merge mode", 2, -1, 24, dict(log_t=14, k_first=20, k_last=20,
+                                        net_tile=16)),
+    ("tile merge mode", 3, 2, 24, dict(log_t=14, k_first=24, k_last=24)),
+    ("cross", 1, 1, 24, dict(k=24, lo=18, c=6)),
+    ("cross", 4, 3, 24, dict(k=22, lo=13, c=4)),
+    ("cross", 2, -2, 24, dict(k=16, lo=15, c=1, net_tile=16)),
+    ("cross", 3, -1, 24, dict(k=24, lo=0, c=4)),
+    ("tile sort mode", 3, 2, 28, dict(log_t=14, k_first=1, k_last=14,
+                                      net_tile=15)),
+    ("tile sort mode", 3, -2, 28, dict(log_t=14, k_first=1, k_last=14,
+                                       net_tile=15)),
+    ("tile sort mode", 4, 3, 28, dict(log_t=13, k_first=1, k_last=13,
+                                      net_tile=15)),
+    ("tile sort mode", 4, 4, 28, dict(log_t=13, k_first=1, k_last=13,
+                                      net_tile=15)),
+    ("tile merge mode", 3, 2, 28, dict(log_t=14, k_first=28, k_last=28)),
+    ("tile merge mode", 3, -2, 28, dict(log_t=14, k_first=28, k_last=28)),
+    ("tile merge mode", 4, 4, 28, dict(log_t=13, k_first=28, k_last=28)),
+    ("cross", 3, 2, 28, dict(k=28, lo=24, c=4)),
+    ("cross", 3, -2, 28, dict(k=28, lo=24, c=4)),
+    ("cross", 4, 3, 28, dict(k=28, lo=24, c=4)),
+    ("cross", 4, 4, 28, dict(k=28, lo=24, c=4)),
+]
+
+
+def network_planes(n_planes, n_cmp, logn, ties, gen) -> list:
+    n = 1 << logn
+    planes = [rand_bits(n, torch.uint32, gen) for _ in range(n_planes)]
+    if ties:  # four values in every comparand plane
+        for q in range(min(abs(n_cmp), n_planes)):
+            planes[q] = (planes[q].view(torch.int32) & 3).view(torch.uint32)
+    if 0 < n_cmp < n_planes:
+        perm = torch.randperm(n, device="cuda", generator=gen)
+        planes[n_cmp - 1] = perm.to(torch.int32).view(torch.uint32)
+    return planes
+
+
+def planes_err(got, want) -> int:
+    return max(max_abs_err(g, w) for g, w in zip(got, want))
+
+
+def phase_network_kernels(gen: torch.Generator) -> dict:
+    """The tile and cross kernels against the plain network, bit for bit:
+    whole sorts and merges (both kernels), then each kernel alone."""
+    from cuda.radixsort_tpu_torch.kernels import bitonic as bk
+
+    errs = {"bitonic_tile": 0, "bitonic_cross": 0}
+    cases = {"sort": 0, "merge": 0, "tile sort mode": 0,
+             "tile merge mode": 0, "cross": 0}
+
+    def record(what, kernels, got, want):
+        e = planes_err(got, want)
+        expect(e == 0, f"{what}: differs from the plain network (max err {e})")
+        for k in kernels:
+            errs[k] = max(errs[k], e)
+
+    for small, table in ((False, NETWORK_SORTS), (True, NETWORK_SMALL)):
+        for p, n_cmp, logn, ties in table:
+            planes = network_planes(p, n_cmp, logn, ties, gen)
+            lt = bk.network_log_tile(p)
+            mine = [q.clone() for q in planes]
+            if small:
+                log_t, c_max = SMALL_GEOMETRY[p]
+                ops = bk.plan_passes(logn, 1, p, log_t=log_t, c_max=c_max)
+                got = bk.run_passes(mine, ops, min(lt, logn), n_cmp)
+            else:
+                got = bk.sort_planes_bitonic(mine, n_cmp=n_cmp, log_tile=lt)
+            torch.cuda.synchronize()
+            want = bk.sort_planes_bitonic_plain(planes, n_cmp=n_cmp,
+                                                log_tile=lt)
+            record(f"network sort {p} planes n_cmp={n_cmp} 2^{logn} "
+                   f"ties={ties} {'small geometry' if small else 'preset'}",
+                   NETWORK, got, want)
+            cases["sort"] += 1
+    for p, n_cmp, logn, ties, lb in NETWORK_MERGES:
+        planes = network_planes(p, n_cmp, logn, ties, gen)
+        got = bk.merge_sorted_planes_bitonic([q.clone() for q in planes],
+                                             log_block=lb, n_cmp=n_cmp)
+        torch.cuda.synchronize()
+        want = bk.merge_sorted_planes_bitonic_plain(planes, log_block=lb,
+                                                    n_cmp=n_cmp)
+        record(f"network merge {p} planes n_cmp={n_cmp} 2^{logn} log_block "
+               f"{lb}", NETWORK, got, want)
+        cases["merge"] += 1
+    del planes, mine, got, want
+    torch.cuda.empty_cache()
+
+    for kind, p, n_cmp, logn, kw in NETWORK_DIRECT:
+        planes = network_planes(p, n_cmp, logn, n_cmp < 0, gen)
+        if kind == "cross":
+            got = bk.cross_pass([q.clone() for q in planes], n_cmp=n_cmp, **kw)
+            torch.cuda.synchronize()
+            want = bk.cross_pass_plain(planes, n_cmp=n_cmp, **kw)
+            record(f"cross_pass {p} planes n_cmp={n_cmp} 2^{logn} {kw}",
+                   ["bitonic_cross"], got, want)
+        else:
+            got = bk.tile_pass([q.clone() for q in planes], n_cmp=n_cmp, **kw)
+            torch.cuda.synchronize()
+            want = bk.tile_pass_plain(planes, n_cmp=n_cmp, **kw)
+            record(f"tile_pass {p} planes n_cmp={n_cmp} 2^{logn} {kw}",
+                   ["bitonic_tile"], got, want)
+        cases[kind] += 1
+        del planes, got, want
+        torch.cuda.empty_cache()
+    n_all = sum(cases.values())
+    geo = [(bk.tile_log_rows(p), bk.cross_strides(p)) for p in (1, 2, 3, 4)]
+    log(f"[kernels] bitonic tile and cross kernels == plain network on "
+        f"{n_all} cases ({cases}; 1-4 planes, n_cmp 1/2/3/-1/-2/all, "
+        f"2^10..2^28 rows, ties on the tie-safe cases; (log_t, c) per plane "
+        f"count: preset {geo}, small {SMALL_GEOMETRY})")
+    expect(n_all >= 20, f"only {n_all} network kernel cases")
+    return errs
+
+
+def sorted_u32(n: int, gen: torch.Generator) -> torch.Tensor:
+    """n random u32 keys in ascending order."""
+    v = torch.sort(u32_to_i64(rand_bits(n, torch.uint32, gen))).values
+    return v.to(torch.int32).view(torch.uint32)
+
+
+def canonical_pairs(keys: torch.Tensor, pay: torch.Tensor):
+    """(u64 keys, u32 payloads) ordered by (key, payload): equal for two
+    inputs iff their (key, payload) multisets are equal."""
+    o1 = torch.sort(u32_to_i64(pay), stable=True).indices
+    k64 = keys.view(torch.int64) ^ (-(1 << 63))
+    o2 = torch.sort(k64[o1], stable=True).indices
+    order = o1[o2]
+    return sv(keys)[order], sv(pay)[order]
+
+
+def ragged_offsets(n: int, n_segments: int, gen) -> torch.Tensor:
+    """(n_segments + 1,) int32 offsets of segments of random sizes."""
+    cuts = torch.randperm(n - 1, device="cuda", generator=gen)[:n_segments - 1]
+    cuts = torch.sort(cuts + 1).values
+    zero = torch.zeros(1, dtype=torch.int64, device="cuda")
+    return torch.cat([zero, cuts, zero + n]).to(torch.int32)
+
+
+def oracle_segmented(keys: torch.Tensor, offsets: torch.Tensor):
+    """Keys sorted within each segment: torch.sort of (segment << 32 | key)."""
+    rows = torch.arange(keys.numel(), device=keys.device)
+    seg = torch.searchsorted(offsets[1:-1].to(torch.int64), rows, right=True)
+    combo = torch.sort((seg << 32) | u32_to_i64(keys)).values
+    return (combo & 0xFFFFFFFF).to(torch.int32).view(torch.uint32)
+
+
+def network_paths(gen: torch.Generator) -> dict:
+    """name -> (fn(cfg), oracle(), rows): the network paths (a)-(f), each
+    run with a config (the network's, or the radix engine's for times)."""
+    import cuda.radixsort_tpu_torch as rt
+    from cuda.radixsort_tpu_torch.models import flagships
+
+    keys1 = rand_bits(N_KEYS, torch.uint32, gen)
+    keys2 = rand_bits(N_PAIRS, torch.uint64, gen)
+    pay2 = rand_bits(N_PAIRS, torch.uint32, gen)
+    _, fk_args = flagships.fk_join(N_PROBE, N_BUILD, generator=gen,
+                                   device="cuda")
+    half = N_PAIRS // 2
+    ma, mb = sorted_u32(half, gen), sorted_u32(half, gen)
+    pa, pb = rand_bits(half, torch.uint32, gen), rand_bits(half, torch.uint32, gen)
+    seg_keys = rand_bits(N_KEYS, torch.uint32, gen)
+    offsets = ragged_offsets(N_KEYS, N_SEGMENTS, gen)
+    k32 = keys1.view(torch.int32) ^ (-(1 << 31))
+    s64 = keys2.view(torch.int64) ^ (-(1 << 63))
+    mkeys = u32_to_i64(torch.cat([ma.view(torch.int32), mb.view(torch.int32)]))
+    mpay = torch.cat([pa.view(torch.int32), pb.view(torch.int32)])
+    return {
+        NET_A: (lambda cfg: rt.sort(keys1, config=cfg),
+                lambda: torch.sort(k32), N_KEYS),
+        NET_B: (lambda cfg: rt.sort_pairs(keys2, pay2, config=cfg),
+                lambda: pay2.view(torch.int32)[torch.sort(s64, stable=True).indices],
+                N_PAIRS),
+        NET_C: (lambda cfg: rt.sort_pairs(keys2, pay2, config=cfg, stable=False),
+                lambda: pay2.view(torch.int32)[torch.sort(s64).indices],
+                N_PAIRS),
+        NET_D: (lambda cfg: rt.join(*fk_args, how="inner", config=cfg),
+                lambda: oracle_fk_join(*fk_args), N_PROBE + N_BUILD),
+        NET_E: (lambda cfg: rt.merge_sorted_pairs(ma, pa, mb, pb, config=cfg),
+                lambda: mpay[torch.sort(mkeys, stable=True).indices], N_PAIRS),
+        NET_F: (lambda cfg: rt.segmented_sort(seg_keys, offsets, config=cfg),
+                lambda: oracle_segmented(seg_keys, offsets), N_KEYS),
+        "_data": (keys1, keys2, pay2, fk_args, (ma, pa, mb, pb, mkeys, mpay),
+                  (seg_keys, offsets)),
+    }
+
+
+def phase_network(gen: torch.Generator, launches: dict) -> None:
+    """Paths (a)-(f) on the network engine, counted, against their oracles."""
+    import cuda.radixsort_tpu_torch as rt
+    from cuda.radixsort_tpu_torch.kernels import bitonic as bk
+
+    net = rt.SortConfig(engine="bitonic")
+    paths = network_paths(gen)
+    keys1, keys2, pay2, fk_args, merge_data, seg_data = paths.pop("_data")
+    pure = ("partition_stage",)
+
+    out = run_counted(NET_A, lambda: paths[NET_A][0](net), NETWORK, launches,
+                      forbid=pure)
+    check_sort(NET_A, out, keys1)
+    k, v = run_counted(NET_B, lambda: paths[NET_B][0](net), NETWORK, launches,
+                       forbid=pure)
+    check_sort(NET_B, k, keys2, got_vals=[v], vals=[pay2])
+    del k, v
+    k, v = run_counted(NET_C, lambda: paths[NET_C][0](net), NETWORK, launches,
+                       forbid=pure)
+    check_sort(NET_C + " (keys)", k, keys2)
+    for (g, w), what in zip(zip(canonical_pairs(k, v),
+                                canonical_pairs(keys2, pay2)),
+                            ("keys", "payloads")):
+        e = max_abs_err(g, w)
+        expect(e == 0, f"{NET_C}: (key, payload) multiset differs ({what}, "
+               f"max err {e})")
+    del k, v, g, w
+    torch.cuda.empty_cache()
+    # a heavy-tie case against the plain network on the same planes:
+    # (hi, lo) limbs of 16 distinct u64 keys and the payload, tie-safe
+    kt = (rand_bits(N_KEYS, torch.uint64, gen).view(torch.int64)
+          & 0x0000000300000003).view(torch.uint64)
+    pt = rand_bits(N_KEYS, torch.uint32, gen)
+    gk, gv = rt.sort_pairs(kt, pt, config=net, stable=False)
+    lohi = kt.view(torch.int32).reshape(-1, 2)
+    planes = [lohi[:, 1].contiguous().view(torch.uint32),
+              lohi[:, 0].contiguous().view(torch.uint32), pt.clone()]
+    hi, lo, pv = bk.sort_planes_bitonic_plain(planes, n_cmp=-2,
+                                              log_tile=bk.network_log_tile(3))
+    want_k = torch.stack([lo.view(torch.int32), hi.view(torch.int32)], 1)
+    e = max(max_abs_err(gk, want_k.view(torch.int64).reshape(-1).view(torch.uint64)),
+            max_abs_err(gv, pv))
+    expect(e == 0, f"unstable heavy-tie sort_pairs 2^24 differs from the plain "
+           f"network (max err {e})")
+    log(f"[network] {NET_A}, {NET_B} == oracle bit for bit; {NET_C}: keys bit "
+        f"for bit and (key, payload) multiset == oracle; unstable 2^24 u64+u32 "
+        f"with 16 distinct keys == the plain network bit for bit")
+    del kt, pt, gk, gv, planes, hi, lo, pv, want_k, keys2, pay2
+    paths.pop(NET_B)
+    paths.pop(NET_C)
+    torch.cuda.empty_cache()
+
+    # the join's sort of 2^27 + 2^24 rows must take the split-sort-merge
+    # route with the tag comparand: a top merge level of 2^28 rows over
+    # (key, tag, value), n_cmp 2 (an index plane would make 4 planes; the
+    # padded sort would merge nothing at log_block 27)
+    merges, real_merge = [], bk.merge_sorted_planes_bitonic
+
+    def traced_merge(planes, **kw):
+        merges.append((planes[0].numel(), len(planes), kw["log_block"],
+                       kw["n_cmp"]))
+        return real_merge(planes, **kw)
+
+    bk.merge_sorted_planes_bitonic = traced_merge
+    try:
+        out = run_counted(NET_D, lambda: paths[NET_D][0](net),
+                          NETWORK + ("segmented_scan",), launches)
+    finally:
+        bk.merge_sorted_planes_bitonic = real_merge
+    logn = (N_PROBE + N_BUILD - 1).bit_length()
+    split = (1 << logn, 3, logn - 1, 2)
+    expect(split in merges, f"{NET_D}: no split-sort-merge level {split} "
+           f"(rows, planes, log_block, n_cmp); merges: {merges}")
+    check_fk(NET_D, out, fk_args)
+    log(f"[network] {NET_D}: split-sort-merge route with the tag comparand "
+        f"taken (merge levels (rows, planes, log_block, n_cmp): {merges})")
+    del out
+    paths.pop(NET_D)
+    torch.cuda.empty_cache()
+
+    ma, pa, mb, pb, mkeys, mpay = merge_data
+    gk, gv = run_counted(NET_E, lambda: paths[NET_E][0](net), NETWORK,
+                         launches, forbid=pure)
+    rk, rv = paths[NET_E][0](rt.SortConfig(engine="radix"))
+    order = torch.sort(mkeys, stable=True).indices
+    for what, g, w in (("keys vs rank-scatter", gk, rk),
+                       ("payloads vs rank-scatter", gv, rv),
+                       ("keys vs torch.sort", gk, mkeys[order].to(torch.int32)),
+                       ("payloads vs torch.sort", gv, mpay[order])):
+        e = max_abs_err(g, w)
+        expect(e == 0, f"{NET_E}: {what} differ (max err {e})")
+    del gk, gv, rk, rv, order
+    paths.pop(NET_E)
+    torch.cuda.empty_cache()
+
+    seg_keys, offsets = seg_data
+    out = run_counted(NET_F, lambda: paths[NET_F][0](net),
+                      NETWORK + ("segmented_scan",), launches, forbid=pure)
+    e = max_abs_err(out, oracle_segmented(seg_keys, offsets))
+    expect(e == 0, f"{NET_F}: differs from the oracle (max err {e})")
+    log(f"[network] {NET_D} == oracle; {NET_E} == the rank-scatter route and "
+        f"a stable torch.sort of the concatenation; {NET_F} == oracle; all bit "
+        f"for bit")
+    torch.cuda.empty_cache()
+
+
 def phase_times(gen: torch.Generator) -> dict:
     import cuda.radixsort_tpu_torch as rt
+    from cuda.radixsort_tpu_torch import twiddle
+    from cuda.radixsort_tpu_torch.kernels import bitonic as bk
     from cuda.radixsort_tpu_torch.kernels import histogram as hist
     from cuda.radixsort_tpu_torch.kernels import scan as kscan
     from cuda.radixsort_tpu_torch.kernels import stage
@@ -635,7 +1041,67 @@ def phase_times(gen: torch.Generator) -> dict:
         t[name] = (cuda_time_ms(lambda: fn(*args), runs=RUNS),
                    cuda_time_ms(lambda: oracle(*args), runs=RUNS), rows)
         torch.cuda.empty_cache()
-    t["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # the network: each path on 'bitonic', on 'radix' and its torch oracle
+    net = rt.SortConfig(engine="bitonic")
+    radix = rt.SortConfig(engine="radix")
+    paths = network_paths(gen)
+    fk_args = paths.pop("_data")[3]
+    for name in NET_PATHS:
+        fn, oracle, rows = paths[name]
+        t[name] = (cuda_time_ms(lambda: fn(net), runs=RUNS),
+                   cuda_time_ms(lambda: fn(radix), runs=RUNS),
+                   cuda_time_ms(oracle, runs=RUNS), rows)
+    # (d)'s sort (2^27 + 2^24 rows, key + tag + value) on the split route
+    # (split_sort_min_logn 19, the preset) and on the padded 2^28 network
+    # (29: the split never engages); the same bits either way
+    bkeys, bvals, pkeys = fk_args
+    del paths, fn, oracle, fk_args
+    keys = twiddle.cat([bkeys, pkeys])
+    n = keys.numel()
+    posc = torch.arange(n, dtype=torch.int32, device="cuda").view(torch.uint32)
+    vals = torch.cat([bvals, torch.zeros(n - bvals.numel(), dtype=bvals.dtype,
+                                         device="cuda")])
+    split_cfg = {19: net, 29: net.replace(split_sort_min_logn=29)}
+    split_out = {}
+    for m, cfg in split_cfg.items():
+        sort_d = lambda cfg=cfg: rt.sort_pairs(keys, (posc, vals), config=cfg,
+                                               unique_leading_payload=True)
+        split_out[m] = sort_d()
+        t[f"split{m}_ms"] = cuda_time_ms(sort_d, runs=RUNS)
+    (k19, (p19, v19)), (k29, (p29, v29)) = split_out[19], split_out[29]
+    e = max(max_abs_err(k19, k29), max_abs_err(p19, p29), max_abs_err(v19, v29))
+    expect(e == 0, f"(d)'s sort: split route and padded sort differ ({e})")
+    del keys, posc, vals, bkeys, bvals, pkeys, split_out
+    del k19, p19, v19, k29, p29, v29
+    torch.cuda.empty_cache()
+    # each network kernel at 2^24 with 1 and 4 planes (all-compare): the
+    # tile kernel's sort pass, one cross pass of the preset width at the
+    # top level, and the whole network
+    logn = N_KEYS.bit_length() - 1
+    for p in (1, 4):
+        planes = [rand_bits(N_KEYS, torch.uint32, gen) for _ in range(p)]
+        lt = min(bk.tile_log_rows(p), logn)
+        c = bk.cross_strides(p)
+        tile_kw = dict(log_t=lt, k_first=1, k_last=lt, n_cmp=p,
+                       net_tile=bk.network_log_tile(p))
+        cross_kw = dict(k=logn, lo=logn - c, c=c, n_cmp=p)
+        t[f"tile{p}_ms"] = cuda_time_ms(
+            lambda: bk.tile_pass(planes, **tile_kw), runs=RUNS)
+        t[f"tile{p}_plain_ms"] = cuda_time_ms(
+            lambda: bk.tile_pass_plain(planes, **tile_kw), runs=RUNS)
+        t[f"cross{p}_ms"] = cuda_time_ms(
+            lambda: bk.cross_pass(planes, **cross_kw), runs=RUNS)
+        t[f"cross{p}_plain_ms"] = cuda_time_ms(
+            lambda: bk.cross_pass_plain(planes, **cross_kw), runs=RUNS)
+        t[f"network{p}_ms"] = cuda_time_ms(
+            lambda: bk.sort_planes_bitonic(planes, n_cmp=p,
+                                           log_tile=bk.network_log_tile(p)),
+            runs=RUNS)
+        t[f"geometry{p}"] = (lt, c)
+    del planes
+    torch.cuda.empty_cache()
+    t["peak_gib"] = max(PEAK_BYTES[0], torch.cuda.max_memory_allocated()) / 2**30
     return t
 
 
@@ -675,6 +1141,11 @@ def phase_profile(gen: torch.Generator) -> None:
                  lambda cfg=None: rt.sort_pairs(keys2, pay2, config=cfg)}
     ops = {name: (lambda fn=fn, args=args: fn(*args))
            for name, (fn, args, _, _) in operator_paths(gen).items()}
+    net = rt.SortConfig(engine="bitonic")
+    net_paths = network_paths(gen)
+    net_paths.pop("_data")
+    ops.update({name: (lambda fn=fn: fn(net))
+                for name, (fn, _, _) in net_paths.items()})
     for name, fn in {**calls, **ops}.items():
         wall_ms = cuda_time_ms(fn, runs=RUNS)
         torch.cuda.synchronize()
@@ -705,7 +1176,7 @@ def phase_profile(gen: torch.Generator) -> None:
             lambda: calls["config 1 sort 2^24 u32"](
                 base.replace(items_per_thread=ipt)), runs=RUNS)
         log(f"[sweep] config 1 sort 2^24 u32: items_per_thread={ipt}: {ms:.3f} ms")
-    del keys1, keys2, pay2, ops
+    del keys1, keys2, pay2, ops, net_paths
     torch.cuda.empty_cache()
 
 
@@ -718,8 +1189,10 @@ def main() -> int:
     gen.manual_seed(SEED)
     errs = phase_kernels(gen)
     errs["segmented_scan"] = phase_scan_kernel(gen)
+    errs.update(phase_network_kernels(gen))
     launches = phase_slice(gen)
     op_errs = phase_operators(gen, launches)
+    phase_network(gen, launches)
     t = phase_times(gen)
     if profile_run:
         phase_profile(gen)
@@ -744,8 +1217,30 @@ def main() -> int:
         f"sum {t['scan_sum_noheads_ms']:.4f} ms (torch.cumsum "
         f"{t['cumsum_ms']:.4f} ms), max {t['scan_max_noheads_ms']:.4f} ms "
         f"(torch.cummax {t['cummax_ms']:.4f} ms)")
+    for name in NET_PATHS:
+        ms, radix_ms, oracle_ms, rows = t[name]
+        log(f"[times] {name}: bitonic {ms:.3f} ms = {rows / ms * 1e3:.4g} "
+            f"rows/s; radix {radix_ms:.3f} ms; torch oracle {oracle_ms:.3f} ms")
+    for p in (1, 4):
+        lt, c = t[f"geometry{p}"]
+        log(f"[times] network kernels 2^24, {p} plane(s): tile sort pass "
+            f"(2^{lt}-row tiles) {t[f'tile{p}_ms']:.4f} ms, plain "
+            f"{t[f'tile{p}_plain_ms']:.4f} ms; cross pass (c={c}) "
+            f"{t[f'cross{p}_ms']:.4f} ms, plain {t[f'cross{p}_plain_ms']:.4f} "
+            f"ms; whole network {t[f'network{p}_ms']:.4f} ms")
+    log(f"[times] (d)'s sort 2^27 + 2^24 rows, key + tag + value: split-sort-"
+        f"merge route {t['split19_ms']:.3f} ms, padded 2^28 network "
+        f"{t['split29_ms']:.3f} ms (split_sort_min_logn 19 / 29; same bits)")
     log(f"[times] peak device memory {t['peak_gib']:.2f} GiB; card: {smi}")
 
+    # network kernels: each plane read and written once; one operation
+    # (a min, max or select) per output word per stage
+    net_bounds = {}
+    for p in (1, 4):
+        lt, c = t[f"geometry{p}"]
+        stages = lt * (lt + 1) // 2
+        net_bounds[p] = (bound_ms(8 * p * N_KEYS, stages * p * N_KEYS),
+                         bound_ms(8 * p * N_KEYS, c * p * N_KEYS))
     hist_bound = bound_ms(4 * N_KEYS + 4 * 256 * 4, 4 * N_KEYS)
     stage_bound = bound_ms(8 * N_KEYS + 4 * 256, N_KEYS)
     scan_bound = bound_ms(9 * N_KEYS, N_KEYS)
@@ -782,11 +1277,48 @@ def main() -> int:
          "ms_max_no_heads": t["scan_max_noheads_ms"],
          "library_ms_cummax": t["cummax_ms"],
          "shape": "2^24 int32 values, sum, 1% heads"},
+        {"name": "bitonic_tile", "route": "cuda",
+         "source": "cuda/radixsort_tpu_torch/csrc/bitonic.cu",
+         "replaces": "cuda/radixsort_tpu/kernels/bitonic.py:412",
+         "launches": launches["bitonic_tile"],
+         "max_abs_err": errs["bitonic_tile"],
+         "ms": t["tile1_ms"], "plain_ms": t["tile1_plain_ms"],
+         "bound_ms": net_bounds[1][0][0], "bound_by": net_bounds[1][0][1],
+         "library_ms": t["torch_sort_ms"],
+         "library_call": "torch.sort of the 2^24 u32 bits: the yardstick of "
+                         "the whole 1-plane network (network_ms), not of "
+                         "this one pass",
+         "network_ms": t["network1_ms"],
+         "ms_4_planes": t["tile4_ms"], "plain_ms_4_planes": t["tile4_plain_ms"],
+         "bound_ms_4_planes": net_bounds[4][0][0],
+         "network_ms_4_planes": t["network4_ms"],
+         "shape": f"2^24 rows, sort pass of 2^{t['geometry1'][0]}-row tiles "
+                  f"(4 planes: 2^{t['geometry4'][0]})"},
+        {"name": "bitonic_cross", "route": "cuda",
+         "source": "cuda/radixsort_tpu_torch/csrc/bitonic.cu",
+         "replaces": "cuda/radixsort_tpu/kernels/bitonic.py:922",
+         "launches": launches["bitonic_cross"],
+         "max_abs_err": errs["bitonic_cross"],
+         "ms": t["cross1_ms"], "plain_ms": t["cross1_plain_ms"],
+         "bound_ms": net_bounds[1][1][0], "bound_by": net_bounds[1][1][1],
+         "library_ms": None,
+         "library_note": "no single torch call runs c strides of one "
+                         "bitonic level",
+         "ms_4_planes": t["cross4_ms"],
+         "plain_ms_4_planes": t["cross4_plain_ms"],
+         "bound_ms_4_planes": net_bounds[4][1][0],
+         "shape": f"2^24 rows, one pass of c={t['geometry1'][1]} strides "
+                  f"(4 planes: c={t['geometry4'][1]}) at level 24"},
     ], "sort_keys_per_s": N_KEYS / t["sort_ms"] * 1e3,
         "sort_pairs_per_s": N_PAIRS / t["pairs_ms"] * 1e3,
         "rows_per_s": {name: t[name][2] / t[name][0] * 1e3
                        for name in (FK, GROUPBY, OUTER)},
-        "mean_rel_err": op_errs["mean_rel_err"]}
+        "mean_rel_err": op_errs["mean_rel_err"],
+        "d_sort_ms": {"split_sort_merge": t["split19_ms"],
+                      "padded_network": t["split29_ms"]},
+        "network_paths_ms": {name: {"bitonic": t[name][0], "radix": t[name][1],
+                                    "oracle": t[name][2]}
+                             for name in NET_PATHS}}
     log(smi)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

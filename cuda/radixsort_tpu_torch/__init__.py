@@ -1,13 +1,20 @@
 """cuda.radixsort_tpu_torch — the PyTorch + CUDA port of cuda.radixsort_tpu.
 
-The LSD radix-sort path and the query operators built on it, on NVIDIA
-Hopper: plain torch glue around three hand-written CUDA kernels
-(``csrc/``): the all-digit histogram, the stable counting pass and the
-segmented scan. The JAX package ``cuda.radixsort_tpu`` is the reference it
-is tested against; this package never imports JAX.
+The LSD radix-sort path, the comparison network and the query operators
+built on them, on NVIDIA Hopper: plain torch glue around five hand-written
+CUDA kernels (``csrc/``): the all-digit histogram, the stable counting
+pass, the segmented scan, and the network's shared-memory tile and
+register cross kernels. The JAX package ``cuda.radixsort_tpu`` is the
+reference it is tested against; this package never imports JAX.
 
-Public API (parity: CUB ``device_radix_sort.cuh``, ``device_scan.cuh``):
-    sort, sort_pairs, argsort, sort_struct   — stable radix sort
+Public API (parity: CUB ``device_radix_sort.cuh``, ``device_scan.cuh``,
+``device_merge.cuh``, ``device_segmented_radix_sort.cuh``; thrust set ops):
+    sort, sort_pairs, argsort, sort_struct   — radix sort, or the network
+                                               (SortConfig(engine="bitonic"))
+    segmented_sort                           — stable sort per segment
+    merge_sorted, merge_sorted_pairs         — stable two-way merge
+    set_intersection, set_difference,
+    set_union, set_symmetric_difference      — sorted multiset algebra
     filter_columns, selection_vector         — stable compaction
     join, join_count, join_expand            — sort-coalesce equality joins
     groupby, groupby_multi, groupby_quantile — sort + segmented-scan group-by
@@ -37,6 +44,17 @@ from cuda.radixsort_tpu_torch.ops.aggregate import (  # noqa: F401
     groupby_quantile,
 )
 from cuda.radixsort_tpu_torch.ops.scan import scan_by_key, segmented_scan  # noqa: F401
+from cuda.radixsort_tpu_torch.ops.segmented import segmented_sort  # noqa: F401
+from cuda.radixsort_tpu_torch.ops.merge import (  # noqa: F401
+    merge_sorted,
+    merge_sorted_pairs,
+)
+from cuda.radixsort_tpu_torch.ops.setops import (  # noqa: F401
+    set_difference,
+    set_intersection,
+    set_symmetric_difference,
+    set_union,
+)
 from cuda.radixsort_tpu_torch import twiddle  # noqa: F401
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -3,8 +3,11 @@
 ``dispatch/tuning/tuning_radix_sort.cuh``).
 
 A small frozen dataclass holds the digit width, the CUDA tile geometry of
-the stage kernel and the engine. ``preset()`` is keyed on the card's compute
-capability. Nothing here reads an environment variable.
+the stage kernel, the engine and the network's split-sort threshold.
+``preset()`` is keyed on the card's compute capability. The network
+kernels' geometry follows from the two limits below
+(``kernels/bitonic.py::tile_log_rows`` / ``cross_strides``). Nothing here
+reads an environment variable.
 """
 
 from __future__ import annotations
@@ -15,8 +18,9 @@ import torch
 
 ENGINES = ("auto", "radix", "bitonic")
 
-_BITONIC_TODO = ("the bitonic network engine is not ported yet "
-                 "(ROADMAP.md, queue A item 3 / queue B items 4-5)")
+MAX_PLANES = 4            # u32 planes the network kernels carry
+SMEM_BYTES = 232448       # shared memory one block may use (227 KB, sm_90)
+MAX_CROSS_WORDS = 64      # 2^c * planes words a cross-kernel thread holds
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,14 +35,17 @@ class SortConfig:
         memory at 8-bit digits).
       items_per_thread: keys each thread ranks per tile; a tile holds
         ``block_threads * items_per_thread`` keys.
-      engine: 'auto' or 'radix' (the LSD pipeline). 'bitonic' raises
-        NotImplementedError until the network engine is ported.
+      engine: 'auto' (= 'radix'), 'radix' (the LSD pipeline) or
+        'bitonic' (the comparison network, kernels/bitonic.py).
+      split_sort_min_logn: a network sort padded by a quarter or more takes
+        the split-sort-merge route from 2^this padded rows up (at least 11).
     """
 
     radix_bits: int = 8
     block_threads: int = 256
     items_per_thread: int = 16
     engine: str = "auto"
+    split_sort_min_logn: int = 19
 
     def __post_init__(self):
         if self.radix_bits not in (2, 4, 8):
@@ -51,6 +58,9 @@ class SortConfig:
                              f"{self.items_per_thread}")
         if self.engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}; got {self.engine!r}")
+        if self.split_sort_min_logn < 11:
+            raise ValueError("split_sort_min_logn must be at least 11; got "
+                             f"{self.split_sort_min_logn}")
 
     @property
     def num_bins(self) -> int:
@@ -69,14 +79,15 @@ class SortConfig:
 # `chip_smoke.py --profile` sweeps radix_bits 4/8 and items_per_thread
 # 8/16/32 on the card; this pair was the fastest there (PERF.md).
 _PRESETS = {
-    (9, 0): dict(radix_bits=8, block_threads=256, items_per_thread=16),
+    (9, 0): dict(radix_bits=8, block_threads=256, items_per_thread=16,
+                 split_sort_min_logn=19),
 }
 
 
 def preset(capability: tuple[int, int] | None = None) -> SortConfig:
     """The preset for a compute capability (default: the current card's).
 
-    Without a card the (9, 0) geometry is returned: on the CPU the wrappers
+    Without a card the (9, 0) preset is returned: on the CPU the wrappers
     run their plain versions and the geometry is never used."""
     if capability is None:
         capability = (torch.cuda.get_device_capability()
@@ -101,10 +112,9 @@ def for_partition(cfg: SortConfig, bits: int | None = None) -> SortConfig:
 
 
 def resolve(config: SortConfig | None = None) -> SortConfig:
-    """Resolve 'auto' to the engine that runs: the radix pipeline."""
+    """Resolve 'auto' to the engine that runs: the radix pipeline. The
+    network runs only where 'bitonic' is asked for."""
     cfg = config or preset()
-    if cfg.engine == "bitonic":
-        raise NotImplementedError(_BITONIC_TODO)
     if cfg.engine == "auto":
         cfg = cfg.replace(engine="radix")
     return cfg

@@ -73,10 +73,6 @@ def partition_stage_plain(planes, gbase, *, shift: int, width: int = 4,
     return list(out)
 
 
-def _ptr_array(tensors) -> ctypes.Array:
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-
-
 def partition_stage(planes, gbase, *, shift: int, width: int = 4, out=None,
                     config: config_lib.SortConfig | None = None):
     """One stable ``width``-bit counting pass.
@@ -109,7 +105,7 @@ def partition_stage(planes, gbase, *, shift: int, width: int = 4, out=None,
     n_tiles = -(-n // cfg.tile_elems)
     counts = torch.empty(nb * n_tiles, dtype=torch.int32, device=dev)
     offsets = torch.empty(nb * n_tiles, dtype=torch.int64, device=dev)
-    ins, outs = _ptr_array(planes), _ptr_array(out)
+    ins, outs = build.ptr_array(planes), build.ptr_array(out)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rs_partition_stage(

@@ -1,14 +1,22 @@
-"""LSD radix sort — the public sort surface of the port.
+"""The public sort surface of the port: LSD radix sort and the network.
 
 Counterpart of ``cuda/radixsort_tpu/ops/sort.py`` for its radix engine
-(``_sort_limbs``' Pallas branch): keys are twiddled into unsigned bits,
-split into u32 limbs (64-bit keys: hi, lo), and sorted least significant
-limb first by the histogram and stage kernels; payloads ride along as u32
-planes. Every sort here is stable, so ``stable=False`` returns the stable
-result.
+(``_sort_limbs``' Pallas branch) and its bitonic engine: keys are twiddled
+into unsigned bits and split into u32 limbs (64-bit keys: hi, lo).
+
+* engine 'radix' (and 'auto'): the limbs sort least significant first
+  through the histogram and stage kernels, payloads riding along as u32
+  planes. Always stable, so ``stable=False`` gives the stable result.
+* engine 'bitonic': full-range keys-only sorts, argsorts of keys up to 32
+  bits, and pair sorts of at most 4 u32 planes with payloads of at most 4
+  bytes run the comparison network (``kernels/bitonic.py``), routed as the
+  JAX engine routes them under ``interpret=True``; the rest (bit ranges,
+  8-byte payloads, more planes, keys-only struct sorts) takes the stable
+  radix path, which gives the stable result the JAX engine falls back to.
 
 Parity: CUB DeviceRadixSort::{SortKeys, SortPairs} (+Descending) with
-begin_bit/end_bit, and the decomposer protocol for struct keys.
+begin_bit/end_bit, thrust::sort_by_key for ``stable=False``, and the
+decomposer protocol for struct keys.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import torch
 
 from cuda.radixsort_tpu_torch import config as config_lib
 from cuda.radixsort_tpu_torch import twiddle
+from cuda.radixsort_tpu_torch.kernels import bitonic as kbitonic
 from cuda.radixsort_tpu_torch.kernels import pipeline as kpipe
 
 # Digit counts and bucket bases are int32, as in the JAX reference, so a
@@ -92,9 +101,17 @@ def _from_planes(planes, spec) -> torch.Tensor:
     return torch.stack([lo, hi], dim=1).view(dtype).reshape(-1)
 
 
-def _sort_limbs(limbs, limb_bits, payloads, cfg):
-    """Stable LSD sort of u32 limb columns (most significant first) with
-    payload columns of any supported dtype riding along."""
+def _sort_limbs(limbs, limb_bits, payloads, cfg, stable: bool = True,
+                unique_leading_payload: bool = False):
+    """Sort u32 limb columns (most significant first, limb_bits[k] the bits
+    of limb k that order) with payload columns of any supported dtype
+    riding along. The network takes the pair sorts it can serve
+    (:func:`_network_pairs`); everything else is the stable LSD sort."""
+    if cfg.engine == "bitonic":
+        out = _network_pairs(limbs, limb_bits, payloads, cfg, stable,
+                             unique_leading_payload)
+        if out is not None:
+            return out
     planes, specs, counts = [], [], []
     for p in payloads:
         ps, spec = _to_planes(p)
@@ -109,9 +126,162 @@ def _sort_limbs(limbs, limb_bits, payloads, cfg):
     return out_limbs, out
 
 
+def apply_permutation(dest: torch.Tensor, arrays):
+    """Scatter each 1-D array by out[dest[i]] = a[i] (dest a bijection)."""
+    dest = dest.to(torch.int64)
+    out = []
+    for a in arrays:
+        o = torch.empty_like(a)
+        twiddle.full_view(o)[dest] = twiddle.full_view(a)
+        out.append(o)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the network engine (kernels/bitonic.py)
+# ---------------------------------------------------------------------------
+
+_MAX_U32 = -1  # 0xFFFFFFFF through the int32 view
+
+
+def _not_u32(p: torch.Tensor) -> torch.Tensor:
+    return (~p.view(torch.int32)).view(torch.uint32)
+
+
+def _split_work_rows(n: int, logn: int) -> float:
+    """Row work of the split-sort-merge route: the leading 2^(logn-1) rows,
+    the remainder at its own power of two, and about a fifth of a padded
+    pass for the top merge level."""
+    npad = 1 << logn
+    rest = n - (npad >> 1)
+    n2 = 1 << max((rest - 1).bit_length(), 10)
+    return (npad >> 1) + n2 + 0.2 * npad
+
+
+def _split_sort_engages(n: int, logn: int, cfg) -> bool:
+    """The split route engages where its row work beats the padded sort by
+    10% and the padded size is at least 2^cfg.split_sort_min_logn.
+    ``chip_smoke.py`` times the FK join's sort (2^27 + 2^24 rows) on both
+    routes on the card (PERF.md)."""
+    npad = 1 << logn
+    if npad == n:
+        return False
+    return (logn >= cfg.split_sort_min_logn
+            and _split_work_rows(n, logn) < 0.9 * npad)
+
+
+def _bitonic_planes(planes, n: int, n_cmp: int, cfg):
+    """Sort n rows of u32 planes on the network. Returns fresh planes of n
+    rows (views of 2^max(bitlen(n-1), 10)-row buffers); the inputs are not
+    written."""
+    logn = max((n - 1).bit_length(), 10)
+    dev = planes[0].device
+    buf = [torch.empty(1 << logn, dtype=torch.uint32, device=dev)
+           for _ in planes]
+    _network_sort_into(buf, planes, n, logn, n_cmp, cfg)
+    return [b[:n] for b in buf]
+
+
+def _network_sort_into(buf, planes, n: int, logn: int, n_cmp: int, cfg):
+    """Sort n rows of planes into buf (2^logn rows each): rows [0, n) take
+    the sorted rows, the rest 0xFFFFFFFF pads, which sort last.
+
+    A heavily padded sort with n_cmp > 0 takes the split-sort-merge route:
+    the leading 2^(logn-1) rows sort ascending in place, the remainder
+    sorts at its own power of two on complemented comparands and goes in
+    descending, behind 0xFFFFFFFF pads, and one merge level finishes (the
+    stable callers' index or tag comparand keeps the merge stable)."""
+    npad = 1 << logn
+    if n_cmp > 0 and _split_sort_engages(n, logn, cfg):
+        n1 = npad >> 1
+        rest = n - n1
+        _network_sort_into([b[:n1] for b in buf], [p[:n1] for p in planes],
+                           n1, logn - 1, n_cmp, cfg)
+        comp = [_not_u32(p[n1:]) if i < n_cmp else p[n1:]
+                for i, p in enumerate(planes)]
+        low = _bitonic_planes(comp, rest, n_cmp, cfg)
+        for i, (b, q) in enumerate(zip(buf, low)):
+            b[n1:npad - rest].view(torch.int32).fill_(_MAX_U32)
+            b[npad - rest:].copy_(_not_u32(q) if i < n_cmp else q)
+        kbitonic.merge_sorted_planes_bitonic(buf, log_block=logn - 1,
+                                             n_cmp=n_cmp)
+        return
+    for b, p in zip(buf, planes):
+        b[:n].copy_(p)
+        b[n:].view(torch.int32).fill_(_MAX_U32)
+    kbitonic.sort_planes_bitonic(
+        buf, n_cmp=n_cmp, log_tile=min(kbitonic.network_log_tile(len(buf)),
+                                       logn))
+
+
+def _network_pairs(limbs, limb_bits, payloads, cfg, stable: bool,
+                   unique_leading_payload: bool):
+    """The network route of a pair sort, or None where the JAX engine does
+    not take it: a bit range, a payload wider than 4 bytes, no payload or
+    more than 4 planes.
+
+    Planes: the limbs, then (stable) an index plane, then the payloads
+    widened to u32. The comparands are the limbs and the index, so the
+    order is total and the sort stable. With ``unique_leading_payload`` a
+    u32 first payload is the tie-break comparand instead of an index
+    plane. Unstable: no index plane; at a power of two the tie-safe rule
+    (n_cmp < 0), else every plane compares, since the 0xFFFFFFFF pads would
+    tie with real max-key rows and tie-safe cannot order them past the
+    pads (ties are then bit-identical rows)."""
+    full = all(b == 0 and e == 32 for b, e in limb_bits)
+    four_byte = all(p.dtype.itemsize <= 4 for p in payloads)
+    tag = (unique_leading_payload and bool(payloads)
+           and payloads[0].dtype == torch.uint32)
+    n_total = len(limbs) + (1 if stable and not tag else 0) + len(payloads)
+    if not (full and four_byte and payloads and n_total <= 4):
+        return None
+    n = limbs[0].shape[0]
+    pays, specs = [], []
+    for p in payloads:
+        (plane,), spec = _to_planes(p)
+        pays.append(plane)
+        specs.append(spec)
+    if stable and tag:
+        planes, n_cmp = list(limbs) + pays, len(limbs) + 1
+    elif stable:
+        idx = torch.arange(n, dtype=torch.int32, device=limbs[0].device)
+        planes = list(limbs) + [idx.view(torch.uint32)] + pays
+        n_cmp = len(limbs) + 1
+    else:
+        planes = list(limbs) + pays
+        npad = 1 << max((n - 1).bit_length(), 10)
+        n_cmp = -len(limbs) if npad == n else len(planes)
+    out = _bitonic_planes(planes, n, n_cmp, cfg)
+    skip = len(limbs) + (1 if stable and not tag else 0)
+    return (out[:len(limbs)],
+            [_from_planes([o], spec) for o, spec in zip(out[skip:], specs)])
+
+
+def _sort_keys_bitonic(keys: torch.Tensor, descending: bool, cfg):
+    """Keys-only network sort: 1 plane, or (hi, lo) for 64-bit keys."""
+    limbs, _ = _key_to_limbs(keys, descending, None, None)
+    out = _bitonic_planes(limbs, keys.shape[0], len(limbs), cfg)
+    return _limbs_to_key(out, keys.dtype, descending)
+
+
+def _argsort_bitonic(keys: torch.Tensor, descending: bool, cfg):
+    """Stable argsort of keys up to 32 bits wide on the network: (key,
+    index) is a total order."""
+    n = keys.shape[0]
+    (limb,), _ = _key_to_limbs(keys, descending, None, None)
+    idx = torch.arange(n, dtype=torch.int32, device=keys.device)
+    out = _bitonic_planes([limb, idx.view(torch.uint32)], n, 2, cfg)
+    return out[1].view(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # key <-> limb columns
 # ---------------------------------------------------------------------------
+
+
+def full_range(dtype: torch.dtype, begin_bit, end_bit) -> bool:
+    """True when [begin_bit, end_bit) asks for every bit of the key."""
+    return begin_bit in (None, 0) and end_bit in (None, twiddle.bit_width(dtype))
 
 
 def _key_to_limbs(keys: torch.Tensor, descending: bool, begin_bit, end_bit):
@@ -182,14 +352,18 @@ def _unflatten(spec, leaves):
 def sort(keys: torch.Tensor, *, descending: bool = False,
          begin_bit: int | None = None, end_bit: int | None = None,
          config: config_lib.SortConfig | None = None) -> torch.Tensor:
-    """Stable radix sort of a 1-D key tensor. Parity: DeviceRadixSort::SortKeys.
-    With begin_bit/end_bit only those bits of the twiddled key order it."""
+    """Sort a 1-D key tensor (keys-only, so stability is unobservable).
+    Parity: DeviceRadixSort::SortKeys. With begin_bit/end_bit only those
+    bits of the twiddled key order it; full-range sorts on the 'bitonic'
+    engine run the network (1 plane, or (hi, lo) for 64-bit keys)."""
     cfg = config_lib.resolve(config)
     if keys.dim() != 1:
         raise ValueError(f"keys must be 1-D; got shape {tuple(keys.shape)}")
     _check_device_n(keys.shape[0])
     if keys.shape[0] == 0:
         return keys.clone()
+    if cfg.engine == "bitonic" and full_range(keys.dtype, begin_bit, end_bit):
+        return _sort_keys_bitonic(keys, descending, cfg)
     limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit)
     limbs, _ = _sort_limbs(limbs, limb_bits, [], cfg)
     return _limbs_to_key(limbs, keys.dtype, descending)
@@ -199,14 +373,15 @@ def sort_pairs(keys: torch.Tensor, values, *, descending: bool = False,
                begin_bit: int | None = None, end_bit: int | None = None,
                config: config_lib.SortConfig | None = None,
                stable: bool = True, unique_leading_payload: bool = False):
-    """Key-value radix sort. ``values``: a tensor, or a list, tuple or dict
-    of tensors (nested), each of leading dimension len(keys). Always stable
-    (``stable=False`` is accepted for parity and gives the stable result).
-    ``unique_leading_payload=True`` says the first value leaf is a unique
-    u32 row tag; the JAX network engine then orders ties by that tag. The
-    result here is the stable one, which is the same whenever the tag
-    increases in input order. Parity: DeviceRadixSort::SortPairs."""
-    del stable, unique_leading_payload  # stable by construction
+    """Key-value sort. ``values``: a tensor, or a list, tuple or dict of
+    tensors (nested), each of leading dimension len(keys). Stable by
+    default. ``stable=False`` (thrust::sort_by_key) lets the network drop
+    its index plane and leave equal keys' payloads in the network's order;
+    the radix engine stays stable. ``unique_leading_payload=True`` says the
+    first value leaf is a unique u32 row tag, never 0xFFFFFFFF: the network
+    then orders ties by that tag instead of an index plane, which is the
+    stable result whenever the tag increases in input order (the radix
+    engine gives the stable result). Parity: DeviceRadixSort::SortPairs."""
     cfg = config_lib.resolve(config)
     if keys.dim() != 1:
         raise ValueError(f"keys must be 1-D; got shape {tuple(keys.shape)}")
@@ -219,7 +394,8 @@ def sort_pairs(keys: torch.Tensor, values, *, descending: bool = False,
     if n == 0:
         return keys.clone(), _unflatten(spec, iter([v.clone() for v in leaves]))
     limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit)
-    limbs, out = _sort_limbs(limbs, limb_bits, leaves, cfg)
+    limbs, out = _sort_limbs(limbs, limb_bits, leaves, cfg, stable=stable,
+                             unique_leading_payload=unique_leading_payload)
     return (_limbs_to_key(limbs, keys.dtype, descending),
             _unflatten(spec, iter(out)))
 
@@ -227,7 +403,15 @@ def sort_pairs(keys: torch.Tensor, values, *, descending: bool = False,
 def argsort(keys: torch.Tensor, *, descending: bool = False,
             begin_bit: int | None = None, end_bit: int | None = None,
             config: config_lib.SortConfig | None = None) -> torch.Tensor:
-    """Stable argsort (int32 positions) through an index payload."""
+    """Stable argsort (int32 positions) through an index payload; keys of
+    up to 32 bits over their full range run the network's (key, index)
+    sort on the 'bitonic' engine."""
+    cfg = config_lib.resolve(config)
+    if (cfg.engine == "bitonic" and full_range(keys.dtype, begin_bit, end_bit)
+            and twiddle.bit_width(keys.dtype) <= 32
+            and keys.dim() == 1 and keys.shape[0] > 0):
+        _check_device_n(keys.shape[0])
+        return _argsort_bitonic(keys, descending, cfg)
     idx = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
     _, perm = sort_pairs(keys, idx, descending=descending,
                          begin_bit=begin_bit, end_bit=end_bit, config=config)
@@ -237,10 +421,10 @@ def argsort(keys: torch.Tensor, *, descending: bool = False,
 def sort_struct(key_columns, values=None, *, descending: bool = False,
                 config: config_lib.SortConfig | None = None,
                 stable: bool = True):
-    """Stable lexicographic sort by several key columns, most significant
-    first (each any supported key dtype). Returns the sorted key columns as
-    a tuple, or (that tuple, sorted values) when values is given."""
-    del stable  # always stable
+    """Lexicographic sort by several key columns, most significant first
+    (each any supported key dtype); stable by default, ``stable=False`` as
+    in :func:`sort_pairs`. Returns the sorted key columns as a tuple, or
+    (that tuple, sorted values) when values is given."""
     cols = list(key_columns)
     if not cols:
         raise ValueError("need at least one key column")
@@ -263,7 +447,8 @@ def sort_struct(key_columns, values=None, *, descending: bool = False,
             spans.append(len(lb))
             limbs += lb
             limb_bits += bb
-        limbs, out = _sort_limbs(limbs, limb_bits, leaves, cfg)
+        limbs, out = _sort_limbs(limbs, limb_bits, leaves, cfg,
+                                 stable=stable)
         out_cols, i = [], 0
         for col, span in zip(cols, spans):
             out_cols.append(_limbs_to_key(limbs[i:i + span], col.dtype,

@@ -10,7 +10,9 @@ together, and one more nvcc call links the objects into one shared library
 with a plain C interface under ``build/radixsort_tpu_torch/`` at the root of
 the checkout. The file name carries a hash of the sources' content and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
-Every pointer and the stream are passed as ``ctypes.c_void_p``.
+Every pointer and the stream are passed as ``ctypes.c_void_p``. ptxas
+reports each kernel's registers and spills (``-Xptxas -v``); a build keeps
+that report in ``PTXAS_REPORT``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ _REPO = os.path.dirname(os.path.dirname(_PKG))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_REPO, "build", "radixsort_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,10 +44,16 @@ _SIGNATURES = {
     "rs_partition_stage": [_P, _P, _I, _P, _I64, _I, _I, _P, _P, _I, _I, _P],
     # values, flags, out, n, dtype, op, n_tiles, agg, aflag, carry, stream
     "rs_segmented_scan": [_P, _P, _P, _I64, _I, _I, _I64, _P, _P, _P, _P],
+    # planes (void**), n_planes, n, log_t, k_first, k_last, net_tile, n_cmp,
+    # stream
+    "rs_bitonic_tile": [_P, _I, _I64, _I, _I, _I, _I, _I, _P],
+    # planes (void**), n_planes, n, k, lo, c, net_tile, n_cmp, stream
+    "rs_bitonic_cross": [_P, _I, _I64, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
+PTXAS_REPORT: dict[str, str] = {}  # source file name -> ptxas -v output
 
 
 def _find_nvcc() -> str:
@@ -89,8 +97,8 @@ def _build() -> str:
                               stderr=subprocess.PIPE, text=True)
              for cmd in cmds]
     try:
-        for cmd, proc in zip(cmds, procs):
-            _run_checked(cmd, proc)
+        for src, cmd, proc in zip(srcs, cmds, procs):
+            PTXAS_REPORT[os.path.basename(src)] = _run_checked(cmd, proc)
         link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
                 "-o", tmp, *objs]
         _run_checked(link, subprocess.Popen(link, stdout=subprocess.PIPE,
@@ -106,11 +114,13 @@ def _build() -> str:
     return so
 
 
-def _run_checked(cmd: list[str], proc: subprocess.Popen) -> None:
+def _run_checked(cmd: list[str], proc: subprocess.Popen) -> str:
+    """Wait for nvcc; returns its stderr, raises if it failed."""
     _, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                            f"{err}")
+    return err
 
 
 def library() -> ctypes.CDLL:
@@ -128,6 +138,12 @@ def library() -> ctypes.CDLL:
             lib.rs_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def ptr_array(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers, for a C entry point
+    that takes ``void**``. Keep it alive until the call returns."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def check(err: int, what: str) -> None:

@@ -66,8 +66,9 @@ def tree_from_numpy(tree, device="cpu"):
 
 # JAX engine -> port engine. 'pallas' and 'reference' are the LSD radix
 # pipeline; 'xla' is a stable lax.sort, which any stable engine reproduces
-# bit for bit, so it maps to 'auto'. 'bitonic' maps to itself and raises at
-# resolve time until the network engine is ported.
+# bit for bit, so it maps to 'auto'. 'bitonic' maps to the port's network
+# engine, which runs the JAX engine's default network (its log_tile of 16,
+# or 15 from 3 planes up) and so lands unstable ties where it does.
 _ENGINE_OF = {"auto": "auto", "pallas": "radix", "reference": "radix",
               "xla": "auto", "bitonic": "bitonic"}
 
@@ -77,7 +78,10 @@ def config_from_jax(cfg) -> config_lib.SortConfig:
 
     The digit width follows the JAX Pallas pipeline's clamp (2-bit stages
     for radix_bits <= 3, 4-bit up to 7) and keeps 8 where JAX asks for 8 or
-    more; the TPU tile geometry has no meaning here and is dropped."""
+    more. The TPU geometry has no meaning here and is dropped: tile_rows
+    and stage_rows are the radix kernels' VMEM tiles, and log_tile and
+    log_merge the network kernels' VMEM blocks (a JAX config that sets
+    log_tile also changes its network, which the port does not follow)."""
     rb = cfg.radix_bits
     width = 2 if rb <= 3 else (4 if rb <= 7 else 8)
     return config_lib.preset((9, 0)).replace(radix_bits=width,

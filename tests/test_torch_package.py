@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import cuda.radixsort_tpu_torch as rt
-from cuda.radixsort_tpu_torch.kernels import histogram, scan, stage
+from cuda.radixsort_tpu_torch.kernels import bitonic, histogram, scan, stage
 from cuda.radixsort_tpu_torch.utils import build
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -24,20 +24,26 @@ def test_imports_with_jax_blocked():
             "import cuda.radixsort_tpu_torch as rt; "
             "import cuda.radixsort_tpu_torch.utils.convert, "
             "cuda.radixsort_tpu_torch.utils.profiling, "
-            "cuda.radixsort_tpu_torch.models.flagships; "
+            "cuda.radixsort_tpu_torch.models.flagships, "
+            "cuda.radixsort_tpu_torch.kernels.bitonic, "
+            "cuda.radixsort_tpu_torch.ops.merge, "
+            "cuda.radixsort_tpu_torch.ops.segmented, "
+            "cuda.radixsort_tpu_torch.ops.setops; "
             "import torch; "
-            "print(rt.sort(torch.tensor([3, 1, 2])).tolist())")
+            "net = rt.SortConfig(engine='bitonic'); "
+            "print(rt.sort(torch.tensor([3, 1, 2])).tolist(), "
+            "rt.sort(torch.tensor([3, 1, 2]), config=net).tolist())")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "[1, 2, 3]"
+    assert proc.stdout.strip() == "[1, 2, 3] [1, 2, 3]"
 
 
 def test_no_source_file_names_jax():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)", re.M)
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 10
+    assert len(files) >= 14
     for path in files:
         assert not pattern.search(path.read_text()), path
 
@@ -53,9 +59,13 @@ def test_build_raises_without_nvcc():
 
 def test_every_kernel_has_a_source_and_a_counter():
     names = {os.path.basename(p) for p in build.sources()}
-    assert names == {"histogram.cu", "scan.cu", "stage.cu"}
+    assert names == {"bitonic.cu", "histogram.cu", "scan.cu", "stage.cu"}
     for mod in (histogram, scan, stage):
         assert isinstance(mod.LAUNCHES, int)
+    assert isinstance(bitonic.TILE_LAUNCHES, int)
+    assert isinstance(bitonic.CROSS_LAUNCHES, int)
+    for name in ("rs_bitonic_tile", "rs_bitonic_cross"):
+        assert name in build._SIGNATURES
     for src in build.sources():
         text = open(src).read()
         assert "Replaces: cuda/radixsort_tpu/kernels/" in text
@@ -72,6 +82,10 @@ def test_non_cpu_device_never_falls_back():
     flags = torch.empty(8, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="device"):
         scan.segmented_scan(keys, flags, "sum")
+    with pytest.raises(ValueError, match="device"):
+        bitonic.sort_planes_bitonic([keys])
+    with pytest.raises(ValueError, match="device"):
+        bitonic.merge_sorted_planes_bitonic([keys], log_block=2)
 
 
 def test_version_and_surface():
@@ -80,5 +94,7 @@ def test_version_and_surface():
                  "SortConfig", "preset", "resolve", "filter_columns",
                  "selection_vector", "join", "join_count", "join_expand",
                  "groupby", "groupby_multi", "groupby_quantile",
-                 "segmented_scan", "scan_by_key"):
+                 "segmented_scan", "scan_by_key", "segmented_sort",
+                 "merge_sorted", "merge_sorted_pairs", "set_intersection",
+                 "set_difference", "set_union", "set_symmetric_difference"):
         assert hasattr(rt, name)

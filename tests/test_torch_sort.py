@@ -226,9 +226,10 @@ def test_config():
     assert rt.preset((9, 0)).tile_elems == 256 * 16
     with pytest.raises(ValueError):
         rt.preset((8, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.sort(torch.zeros(4, dtype=torch.int32),
-                config=rt.SortConfig(engine="bitonic"))
+    net = rt.SortConfig(engine="bitonic")
+    assert rt.resolve(net).engine == "bitonic"
+    got = rt.sort(torch.tensor([3, -1, 2, -7], dtype=torch.int32), config=net)
+    assert got.tolist() == [-7, -1, 2, 3]
     with pytest.raises(ValueError):
         rt.SortConfig(radix_bits=5)
     with pytest.raises(ValueError):
@@ -236,6 +237,7 @@ def test_config():
     assert config_from_jax(rs.SortConfig(engine="pallas", radix_bits=3)) == \
         rt.SortConfig(radix_bits=2, engine="radix")
     assert config_from_jax(rs.SortConfig()).engine == "auto"
+    assert config_from_jax(rs.SortConfig(engine="bitonic")).engine == "bitonic"
 
 
 def test_rejects_mismatched_values():
