@@ -15,7 +15,13 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      as whole network sorts and merges, against the plain network bit for
      bit (1-4 planes, n_cmp 1, 2, 3, -1, -2 and all-compare, 2^10..2^28 rows,
      the main path's 2^28 shapes included, heavy ties on the tie-safe
-     cases); each kernel's registers and spills as ptxas reports them;
+     cases, tile geometries of each stride class: registers only, registers
+     and shuffles, all three; the tile kernel's entry point refuses a phase
+     list or block its geometry cannot run); the stage kernel also below
+     one tile, at whole tiles, with 10 planes (a second launch), on a
+     one-digit 2^28 key plane (one bucket whose lookback carries every
+     tile) and three times on one 2^24 input (the same bits); each
+     kernel's registers, spills and stack frame as ptxas reports them;
   4. slice: sort (2^24 u32 keys) and stable sort_pairs (2^28 u64 keys + u32
      payload) and smaller cases against a torch.sort oracle on the card, bit
      for bit, with the kernels' launch counters read around each path;
@@ -37,10 +43,13 @@ Phases, each of which fails loudly (non-zero exit, no result line):
   7. times: CUDA-event medians of every path and of its torch oracle (the
      network paths also beside the radix engine), of (d)'s sort on the
      split-sort-merge route beside the padded network, and of each kernel
-     beside its plain version and its one-call torch yardstick;
+     beside its plain version and its one-call torch yardstick (the stage
+     pass also at config 2's 2^28 x 3 planes, the tile kernel's sort and
+     merge passes at path (b)'s 2^28 x 4 planes, the 2^24 network also on
+     tiles twice the preset's, one block an SM);
   8. (--profile only) a torch.profiler breakdown of every path (the network
-     paths included) with the device's idle share, and a sweep of radix_bits
-     and items_per_thread.
+     paths included) with the device's idle share, and a sweep of radix_bits,
+     block_threads and items_per_thread on configs 1 and 2.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record. The JAX package is never imported.
@@ -236,17 +245,18 @@ def load_port():
 
 
 def ptxas_kernels(report: str) -> list:
-    """(kernel, registers, spill store bytes, spill load bytes) for each
-    entry function of one source's ``ptxas -v`` report."""
+    """(kernel, registers, spill store bytes, spill load bytes, stack frame
+    bytes) for each entry function of one source's ``ptxas -v`` report."""
     rows, name = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            rows.append([name, None, None, None])
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            rows.append([name, None, None, None, None])
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and rows and rows[-1][0] == name:
-            rows[-1][2:] = [int(m.group(1)), int(m.group(2))]
+            rows[-1][2:] = [int(m.group(2)), int(m.group(3)), int(m.group(1))]
         m = re.search(r"Used (\d+) registers", line)
         if m and rows and rows[-1][0] == name:
             rows[-1][1] = int(m.group(1))
@@ -271,10 +281,10 @@ def phase_build() -> float:
             f"{max(r[1] for r in rows)} registers, spill stores "
             f"{sum(r[2] for r in rows)} / loads {sum(r[3] for r in rows)} "
             f"bytes in all")
-        if src == "bitonic.cu":
-            for name, regs, st, ld in rows:
+        if src in ("bitonic.cu", "stage.cu"):
+            for name, regs, st, ld, frame in rows:
                 log(f"[build]   {name}: {regs} registers, spill stores {st} "
-                    f"/ loads {ld} bytes")
+                    f"/ loads {ld} bytes, stack frame {frame} bytes")
     return secs
 
 
@@ -291,7 +301,26 @@ def make_keys(case: str, n: int, gen: torch.Generator) -> torch.Tensor:
     return keys
 
 
+def _stage_case(planes, width: int, shift: int, what: str) -> int:
+    """partition_stage on the card against its plain version, bit for bit;
+    gbase from the key plane's own histogram. Returns the max error."""
+    from cuda.radixsort_tpu_torch.kernels import histogram as hist
+    from cuda.radixsort_tpu_torch.kernels import stage
+
+    h = hist.digit_histograms_plain(planes[0], n_stages=32 // width,
+                                    width=width)
+    gbase = hist.stage_bases(h)[shift // width].contiguous()
+    got = stage.partition_stage(planes, gbase, shift=shift, width=width)
+    torch.cuda.synchronize()
+    want = stage.partition_stage_plain(planes, gbase, shift=shift, width=width)
+    e = max(max_abs_err(g, w) for g, w in zip(got, want))
+    expect(e == 0, f"partition_stage {what} width={width} shift={shift}: "
+           f"max err {e}")
+    return e
+
+
 def phase_kernels(gen: torch.Generator) -> dict:
+    from cuda.radixsort_tpu_torch import config as config_lib
     from cuda.radixsort_tpu_torch.kernels import histogram as hist
     from cuda.radixsort_tpu_torch.kernels import stage
 
@@ -338,9 +367,42 @@ def phase_kernels(gen: torch.Generator) -> dict:
         f"random/constant/90%-one-key; 10 planes at 2^20+5)")
     del keys, planes, got, want
 
+    # the onesweep kernel's edges: less than one tile, whole tiles, the
+    # second launch (planes 9-10), and lookback determinism
+    tile = config_lib.preset().tile_elems
+    edges = [(1, 1), (31, 3), (tile - 1, 2), (tile, 1), (tile * 1000, 3),
+             (tile - 1, 10), (tile * 37 + 5, 10)]
+    for n, n_planes in edges:
+        planes = [rand_bits(n, torch.uint32, gen) for _ in range(n_planes)]
+        for width, shift in ((8, 0), (4, 28), (2, 14)):
+            errs["partition_stage"] = max(errs["partition_stage"], _stage_case(
+                planes, width, shift, f"n={n} planes={n_planes}"))
+    keys = rand_bits(N_KEYS, torch.uint32, gen)
+    planes = [keys, rand_bits(N_KEYS, torch.uint32, gen)]
+    gbase = hist.stage_bases(hist.digit_histograms_plain(
+        keys, n_stages=4, width=8))[0].contiguous()
+    runs = [stage.partition_stage(planes, gbase, shift=0, width=8)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    want = stage.partition_stage_plain(planes, gbase, shift=0, width=8)
+    for r, got in enumerate(runs):
+        e = max(max_abs_err(g, w) for g, w in zip(got, want))
+        expect(e == 0, f"partition_stage 2^24 run {r}: max err {e}")
+    log(f"[kernels] partition_stage == plain on {3 * len(edges)} edge cases "
+        f"(n = 1, 31, tile-1, tile, 1000 tiles, tile-1 and 37 tiles + 5 "
+        f"with 10 planes; tile {tile}; widths 8/4/2) and 3 runs of one "
+        f"2^24 pass, the same bits each time")
+    del keys, planes, runs, want, got
+
     # Config 2's shapes: both kernels at 2^28 keys, width 8, on the low key
-    # limb with the high limb and the u32 payload riding along (3 planes).
-    planes = [rand_bits(N_PAIRS, torch.uint32, gen) for _ in range(3)]
+    # limb with the high limb and the u32 payload riding along (3 planes);
+    # first a key plane of one digit, a single bucket whose lookback
+    # carries every tile.
+    planes = [make_keys("constant", N_PAIRS, gen)]
+    planes += [rand_bits(N_PAIRS, torch.uint32, gen) for _ in range(2)]
+    errs["partition_stage"] = max(errs["partition_stage"], _stage_case(
+        planes, 8, 0, "2^28 one digit, 3 planes"))
+    planes[0] = rand_bits(N_PAIRS, torch.uint32, gen)
     got = hist.digit_histograms(planes[0], n_stages=4, width=8)
     torch.cuda.synchronize()
     h = hist.digit_histograms_plain(planes[0], n_stages=4, width=8)
@@ -706,6 +768,15 @@ NETWORK_DIRECT = [
 ]
 
 
+# (planes, n_cmp, log_t): per plane count a tile of registers only (log_t
+# <= e), of registers and shuffles (log_t <= e + 5) and of all three
+# stride classes (e from kernels/bitonic.py::tile_geometry: 5, 4, 3, 3)
+NETWORK_CLASSES = [(1, 1, 3), (1, -1, 9), (1, 1, 14),
+                   (2, -2, 2), (2, 2, 8), (2, 1, 13),
+                   (3, 2, 3), (3, -1, 7), (3, 3, 13),
+                   (4, 1, 2), (4, -2, 6), (4, 4, 12)]
+
+
 def network_planes(n_planes, n_cmp, logn, ties, gen) -> list:
     n = 1 << logn
     planes = [rand_bits(n, torch.uint32, gen) for _ in range(n_planes)]
@@ -792,7 +863,73 @@ def phase_network_kernels(gen: torch.Generator) -> dict:
         f"2^10..2^28 rows, ties on the tie-safe cases; (log_t, c) per plane "
         f"count: preset {geo}, small {SMALL_GEOMETRY})")
     expect(n_all >= 20, f"only {n_all} network kernel cases")
+
+    # tile geometries in which each stride class occurs, whole networks of
+    # 2^18 rows with four values per comparand plane
+    classes = {}
+    for p, n_cmp, log_t in NETWORK_CLASSES:
+        e, _ = bk.tile_geometry(p, log_t)
+        kinds = set()
+        for kind, k, a, b in bk.tile_phases(log_t, e, 1, log_t):
+            if kind == "shared":
+                kinds.add("shared")
+                continue
+            kinds.add("register")  # stride 1 is in every register phase
+            if max(b, min(a, log_t) - 1 if a > k else b) >= e:
+                kinds.add("shuffle")
+        planes = network_planes(p, n_cmp, 18, True, gen)
+        lt = bk.network_log_tile(p)
+        ops = bk.plan_passes(18, 1, p, log_t=log_t)
+        got = bk.run_passes([q.clone() for q in planes], ops, lt, n_cmp)
+        torch.cuda.synchronize()
+        want = bk.sort_planes_bitonic_plain(planes, n_cmp=n_cmp, log_tile=lt)
+        record(f"network sort {p} planes n_cmp={n_cmp} 2^18 log_t={log_t} "
+               f"({sorted(kinds)})", NETWORK, got, want)
+        key = "+".join(sorted(kinds))
+        classes[key] = classes.get(key, 0) + 1
+        del planes, got, want
+    expect(len(classes) == 3, f"stride classes covered: {classes}")
+    log(f"[kernels] bitonic tile kernel == plain network on "
+        f"{len(NETWORK_CLASSES)} geometries by stride class ({classes}; 1-4 "
+        f"planes, n_cmp 1/-1/2/-2/all, heavy ties)")
+    torch.cuda.empty_cache()
+    tile_rejects_bad_launches()
     return errs
+
+
+def tile_rejects_bad_launches() -> None:
+    """The tile kernel's C entry point refuses, with cudaErrorInvalidValue
+    (1) and no launch, a block of fewer than 32 threads that does not cover
+    its tile's units in one pass, and phases its geometry cannot run."""
+    import ctypes
+
+    from cuda.radixsort_tpu_torch.kernels import bitonic as bk
+    from cuda.radixsort_tpu_torch.utils import build
+
+    lib = build.library()
+    planes = [torch.zeros(1 << 8, dtype=torch.int32,
+                          device="cuda").view(torch.uint32)]
+    ptrs = build.ptr_array(planes)
+    log_t, e = 8, 2  # 64 units of 4 rows
+    cases = {
+        "16 threads for 64 units": (16, bk.tile_phases(log_t, e, 1, log_t)),
+        "a shuffle stride of 32 lanes": (64, [("register", 8, 8, e + 5)]),
+        "a group of more than e strides": (64, [("shared", 8, 0, e + 1)]),
+        "a group beyond the tile": (64, [("shared", 8, 7, 2)]),
+    }
+    for what, (threads, phases) in cases.items():
+        words = [x for kind, k, a, b in phases
+                 for x in (kind == "shared", k, a, b)]
+        words = (ctypes.c_int * len(words))(*words)
+        err = lib.rs_bitonic_tile(
+            ctypes.cast(ptrs, ctypes.c_void_p), 1, 1 << log_t, log_t, e,
+            threads, ctypes.cast(words, ctypes.c_void_p), len(phases), 0, 1,
+            bk.tile_smem_bytes(1, log_t),
+            torch.cuda.current_stream().cuda_stream)
+        expect(err == 1, f"rs_bitonic_tile accepted {what} (returned {err})")
+    torch.cuda.synchronize()
+    log(f"[kernels] bitonic tile entry point refuses {len(cases)} launches "
+        f"it cannot run: {', '.join(cases)}")
 
 
 def sorted_u32(n: int, gen: torch.Generator) -> torch.Tensor:
@@ -1009,6 +1146,17 @@ def phase_times(gen: torch.Generator) -> dict:
                                                 width=8, out=out), runs=RUNS)
     del keys1, k32, planes, out
 
+    # config 2's pass: 2^28 keys, width 8, 3 planes
+    planes = [rand_bits(N_PAIRS, torch.uint32, gen) for _ in range(3)]
+    out = [torch.empty_like(p) for p in planes]
+    gbase = hist.stage_bases(hist.digit_histograms(planes[0], n_stages=4,
+                                                   width=8))[0].contiguous()
+    t["stage3_2_28_ms"] = cuda_time_ms(
+        lambda: stage.partition_stage(planes, gbase, shift=0, width=8,
+                                      out=out), runs=RUNS)
+    del planes, out
+    torch.cuda.empty_cache()
+
     keys2 = rand_bits(N_PAIRS, torch.uint64, gen)
     pay2 = rand_bits(N_PAIRS, torch.uint32, gen)
     t["pairs_ms"] = cuda_time_ms(lambda: rt.sort_pairs(keys2, pay2), runs=RUNS)
@@ -1098,7 +1246,24 @@ def phase_times(gen: torch.Generator) -> dict:
             lambda: bk.sort_planes_bitonic(planes, n_cmp=p,
                                            log_tile=bk.network_log_tile(p)),
             runs=RUNS)
+        # the same network on tiles twice as large: one block an SM
+        ops = bk.plan_passes(logn, 1, p, log_t=lt + 1)
+        t[f"network{p}_one_block_ms"] = cuda_time_ms(
+            lambda: bk.run_passes(planes, ops, bk.network_log_tile(p), p),
+            runs=RUNS)
         t[f"geometry{p}"] = (lt, c)
+    del planes
+    torch.cuda.empty_cache()
+    # path (b)'s tile passes: 2^28 rows of 4 planes (n_cmp 3), the sort
+    # pass and the top level's merge-mode pass
+    planes = network_planes(4, 3, 28, False, gen)
+    lt = bk.tile_log_rows(4)
+    t["tile4_2_28_ms"] = cuda_time_ms(
+        lambda: bk.tile_pass(planes, log_t=lt, k_first=1, k_last=lt, n_cmp=3,
+                             net_tile=bk.network_log_tile(4)), runs=RUNS)
+    t["tile4_merge_2_28_ms"] = cuda_time_ms(
+        lambda: bk.tile_pass(planes, log_t=lt, k_first=28, k_last=28,
+                             n_cmp=3), runs=RUNS)
     del planes
     torch.cuda.empty_cache()
     t["peak_gib"] = max(PEAK_BYTES[0], torch.cuda.max_memory_allocated()) / 2**30
@@ -1171,11 +1336,13 @@ def phase_profile(gen: torch.Generator) -> None:
         for rb in (4, 8):
             ms = cuda_time_ms(lambda: fn(base.replace(radix_bits=rb)), runs=RUNS)
             log(f"[sweep] {name}: radix_bits={rb}: {ms:.3f} ms")
-    for ipt in (8, 16, 32):
-        ms = cuda_time_ms(
-            lambda: calls["config 1 sort 2^24 u32"](
-                base.replace(items_per_thread=ipt)), runs=RUNS)
-        log(f"[sweep] config 1 sort 2^24 u32: items_per_thread={ipt}: {ms:.3f} ms")
+    for name, fn in calls.items():
+        for bt in (128, 256, 512):
+            for ipt in (8, 16, 32):
+                ms = cuda_time_ms(lambda: fn(base.replace(
+                    block_threads=bt, items_per_thread=ipt)), runs=RUNS)
+                log(f"[sweep] {name}: block_threads={bt} "
+                    f"items_per_thread={ipt}: {ms:.3f} ms")
     del keys1, keys2, pay2, ops, net_paths
     torch.cuda.empty_cache()
 
@@ -1211,7 +1378,10 @@ def main() -> int:
         f"plain {t['hist_plain_ms']:.4f} ms")
     for p in (1, 3):
         log(f"[times] partition_stage 2^24 width 8, {p} plane(s): kernel "
-            f"{t[f'stage{p}_ms']:.4f} ms, plain {t[f'stage{p}_plain_ms']:.4f} ms")
+            f"{t[f'stage{p}_ms']:.4f} ms, plain "
+            f"{t[f'stage{p}_plain_ms']:.4f} ms")
+    log(f"[times] partition_stage 2^28 width 8, 3 planes (config 2's pass): "
+        f"{t['stage3_2_28_ms']:.4f} ms")
     log(f"[times] segmented_scan 2^24 int32 sum, 1% heads: kernel "
         f"{t['scan_ms']:.4f} ms, plain {t['scan_plain_ms']:.4f} ms; no heads: "
         f"sum {t['scan_sum_noheads_ms']:.4f} ms (torch.cumsum "
@@ -1227,11 +1397,18 @@ def main() -> int:
             f"(2^{lt}-row tiles) {t[f'tile{p}_ms']:.4f} ms, plain "
             f"{t[f'tile{p}_plain_ms']:.4f} ms; cross pass (c={c}) "
             f"{t[f'cross{p}_ms']:.4f} ms, plain {t[f'cross{p}_plain_ms']:.4f} "
-            f"ms; whole network {t[f'network{p}_ms']:.4f} ms")
+            f"ms; whole network {t[f'network{p}_ms']:.4f} ms (two blocks an "
+            f"SM), {t[f'network{p}_one_block_ms']:.4f} ms on 2^{lt + 1}-row "
+            f"tiles (one block an SM)")
+    log(f"[times] tile kernel 2^28, 4 planes (path (b)): sort pass "
+        f"{t['tile4_2_28_ms']:.4f} ms, merge-mode pass at level 28 "
+        f"{t['tile4_merge_2_28_ms']:.4f} ms")
     log(f"[times] (d)'s sort 2^27 + 2^24 rows, key + tag + value: split-sort-"
         f"merge route {t['split19_ms']:.3f} ms, padded 2^28 network "
         f"{t['split29_ms']:.3f} ms (split_sort_min_logn 19 / 29; same bits)")
     log(f"[times] peak device memory {t['peak_gib']:.2f} GiB; card: {smi}")
+
+    from cuda.radixsort_tpu_torch.kernels import bitonic as bk
 
     # network kernels: each plane read and written once; one operation
     # (a min, max or select) per output word per stage
@@ -1241,8 +1418,12 @@ def main() -> int:
         stages = lt * (lt + 1) // 2
         net_bounds[p] = (bound_ms(8 * p * N_KEYS, stages * p * N_KEYS),
                          bound_ms(8 * p * N_KEYS, c * p * N_KEYS))
+    lt4 = bk.tile_log_rows(4)
+    tile4_2_28_bound = bound_ms(8 * 4 * N_PAIRS,
+                                lt4 * (lt4 + 1) // 2 * 4 * N_PAIRS)
     hist_bound = bound_ms(4 * N_KEYS + 4 * 256 * 4, 4 * N_KEYS)
     stage_bound = bound_ms(8 * N_KEYS + 4 * 256, N_KEYS)
+    stage_2_28_bound = bound_ms(8 * 3 * N_PAIRS + 4 * 256, N_PAIRS)
     scan_bound = bound_ms(9 * N_KEYS, N_KEYS)
     record = {"kernels": [
         {"name": "digit_histograms", "route": "cuda",
@@ -1263,7 +1444,9 @@ def main() -> int:
          "bound_ms": stage_bound[0], "bound_by": stage_bound[1],
          "library_ms": None,
          "ms_3_planes": t["stage3_ms"], "plain_ms_3_planes": t["stage3_plain_ms"],
-         "shape": "2^24 u32 keys, width 8, shift 0"},
+         "ms_2_28_3_planes": t["stage3_2_28_ms"],
+         "bound_ms_2_28_3_planes": stage_2_28_bound[0],
+         "shape": "2^24 u32 keys, width 8, shift 0 (2^28: config 2's pass)"},
         {"name": "segmented_scan", "route": "cuda",
          "source": "cuda/radixsort_tpu_torch/csrc/scan.cu",
          "replaces": "cuda/radixsort_tpu/kernels/scan.py:155",
@@ -1292,6 +1475,9 @@ def main() -> int:
          "ms_4_planes": t["tile4_ms"], "plain_ms_4_planes": t["tile4_plain_ms"],
          "bound_ms_4_planes": net_bounds[4][0][0],
          "network_ms_4_planes": t["network4_ms"],
+         "ms_2_28_4_planes": t["tile4_2_28_ms"],
+         "bound_ms_2_28_4_planes": tile4_2_28_bound[0],
+         "merge_ms_2_28_4_planes": t["tile4_merge_2_28_ms"],
          "shape": f"2^24 rows, sort pass of 2^{t['geometry1'][0]}-row tiles "
                   f"(4 planes: 2^{t['geometry4'][0]})"},
         {"name": "bitonic_cross", "route": "cuda",

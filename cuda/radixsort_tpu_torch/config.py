@@ -21,6 +21,11 @@ ENGINES = ("auto", "radix", "bitonic")
 MAX_PLANES = 4            # u32 planes the network kernels carry
 SMEM_BYTES = 232448       # shared memory one block may use (227 KB, sm_90)
 MAX_CROSS_WORDS = 64      # 2^c * planes words a cross-kernel thread holds
+MAX_TILE_WORDS = 32       # 2^e * planes words a tile-kernel thread holds
+MAX_TILE_THREADS = 256    # threads of one tile-kernel block
+TILE_BLOCKS_PER_SM = 2    # tile-kernel blocks that share one SM
+STAGE_ITEMS = (4, 8, 16, 32)  # keys per thread the stage kernel is built for
+MAX_STAGE_THREADS = 512   # the stage kernel's __launch_bounds__
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,11 +35,14 @@ class SortConfig:
     Attributes:
       radix_bits: digit width of one counting pass, 2, 4 or 8 (8 = 256 bins,
         the contract's digit width: a u32 sort is 4 passes).
-      block_threads: threads per block of the stage kernels (a multiple of
-        32, at most 512 so the per-warp bucket table fits 48 KB of shared
-        memory at 8-bit digits).
-      items_per_thread: keys each thread ranks per tile; a tile holds
-        ``block_threads * items_per_thread`` keys.
+      block_threads: threads per block of the stage kernel (a multiple of
+        32, at most 512: the kernel is built for 512 threads a block, so a
+        thread keeps up to 128 registers for its keys and their slots; its
+        shared memory, ``kernels/stage.py::stage_smem_bytes``, then stays
+        under ``SMEM_BYTES`` for every tile these limits allow).
+      items_per_thread: keys each thread ranks per tile, one of
+        ``STAGE_ITEMS`` (the kernel holds them in registers, one build per
+        value); a tile holds ``block_threads * items_per_thread`` keys.
       engine: 'auto' (= 'radix'), 'radix' (the LSD pipeline) or
         'bitonic' (the comparison network, kernels/bitonic.py).
       split_sort_min_logn: a network sort padded by a quarter or more takes
@@ -43,19 +51,21 @@ class SortConfig:
 
     radix_bits: int = 8
     block_threads: int = 256
-    items_per_thread: int = 16
+    items_per_thread: int = 32
     engine: str = "auto"
     split_sort_min_logn: int = 19
 
     def __post_init__(self):
         if self.radix_bits not in (2, 4, 8):
             raise ValueError(f"radix_bits must be 2, 4 or 8; got {self.radix_bits}")
-        if (self.block_threads % 32 or not 32 <= self.block_threads <= 512):
+        if (self.block_threads % 32
+                or not 32 <= self.block_threads <= MAX_STAGE_THREADS):
             raise ValueError("block_threads must be a multiple of 32 in "
-                             f"[32, 512]; got {self.block_threads}")
-        if not 1 <= self.items_per_thread <= 64:
-            raise ValueError("items_per_thread must be in [1, 64]; got "
-                             f"{self.items_per_thread}")
+                             f"[32, {MAX_STAGE_THREADS}]; got "
+                             f"{self.block_threads}")
+        if self.items_per_thread not in STAGE_ITEMS:
+            raise ValueError(f"items_per_thread must be one of {STAGE_ITEMS};"
+                             f" got {self.items_per_thread}")
         if self.engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}; got {self.engine!r}")
         if self.split_sort_min_logn < 11:
@@ -75,11 +85,13 @@ class SortConfig:
 
 
 # Per-architecture presets, keyed on torch.cuda.get_device_capability().
-# (9, 0): H100 / H200: 256 threads x 16 keys = 4096-key tiles, 8-bit digits.
-# `chip_smoke.py --profile` sweeps radix_bits 4/8 and items_per_thread
-# 8/16/32 on the card; this pair was the fastest there (PERF.md).
+# (9, 0): H100 / H200: 256 threads x 32 keys = 8192-key tiles, 8-bit digits.
+# `chip_smoke.py --profile` sweeps radix_bits 4/8, block_threads 128/256/512
+# and items_per_thread 8/16/32 on the card; with the onesweep stage kernel
+# this was the fastest on config 2; on config 1 the sweeps disagree
+# (PERF.md): one preset serves both, and config 2's size decides.
 _PRESETS = {
-    (9, 0): dict(radix_bits=8, block_threads=256, items_per_thread=16,
+    (9, 0): dict(radix_bits=8, block_threads=256, items_per_thread=32,
                  split_sort_min_logn=19),
 }
 

@@ -185,9 +185,10 @@ def tile_pass(planes, *, log_t: int, k_first: int, k_last: int,
               net_tile: int = 0, n_cmp: int = 1):
     """Levels k_first..k_last of the network, each over its strides below
     2^log_t, in 2^log_t-row tiles held in shared memory (one block per
-    tile). Sort mode is levels 1..log_t; merge mode one level k > log_t
-    after its cross strides. net_tile: the network's log_tile (0: none).
-    In place; returns the planes."""
+    tile; the kernel runs the phases of :func:`tile_phases` on the
+    :func:`tile_geometry` of this log_t). Sort mode is levels 1..log_t;
+    merge mode one level k > log_t after its cross strides. net_tile: the
+    network's log_tile (0: none). In place; returns the planes."""
     global TILE_LAUNCHES
     planes = list(planes)
     logn = _check(planes, n_cmp)
@@ -196,13 +197,20 @@ def tile_pass(planes, *, log_t: int, k_first: int, k_last: int,
         return tile_pass_plain(planes, log_t=log_t, k_first=k_first,
                                k_last=k_last, net_tile=net_tile, n_cmp=n_cmp)
     _require_cuda(planes)
+    e, threads = tile_geometry(len(planes), log_t)
+    phases = tile_phases(log_t, e, k_first, k_last)
+    words = [x for kind, k, a, b in phases
+             for x in (kind == "shared", k, a, b)]
+    words = (ctypes.c_int * len(words))(*words)
     lib = build.library()
     ptrs = build.ptr_array(planes)
     with torch.cuda.device(planes[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rs_bitonic_tile(ctypes.cast(ptrs, ctypes.c_void_p),
-                                  len(planes), 1 << logn, log_t, k_first,
-                                  k_last, net_tile, n_cmp, stream)
+                                  len(planes), 1 << logn, log_t, e, threads,
+                                  ctypes.cast(words, ctypes.c_void_p),
+                                  len(phases), net_tile, n_cmp,
+                                  tile_smem_bytes(len(planes), log_t), stream)
     build.check(err, "bitonic tile_pass")
     TILE_LAUNCHES += 1
     return planes
@@ -238,10 +246,66 @@ def cross_pass(planes, *, k: int, lo: int, c: int, net_tile: int = 0,
 # ---------------------------------------------------------------------------
 
 
+SHUFFLE_STRIDES = 5  # strides 2^e..2^(e+4) pair the lanes of one warp
+
+
+def tile_smem_bytes(n_planes: int, log_t: int) -> int:
+    """Shared memory of one tile-kernel block, which the launch gives it
+    (the kernel traps if it is short): every plane of the tile, with one
+    word of padding per 32 rows (against bank conflicts)."""
+    rows = 1 << log_t
+    return 4 * n_planes * (rows + (rows >> 5))
+
+
 def tile_log_rows(n_planes: int) -> int:
-    """log2 of the rows of the tile kernel's tile: the most whose planes fit
-    one block's shared memory (1 plane: 2^15 rows = 128 KB; 3: 2^14 = 192 KB)."""
-    return (config_lib.SMEM_BYTES // (4 * n_planes)).bit_length() - 1
+    """log2 of the rows of the tile kernel's tile: the most whose padded
+    planes fit the shared memory of one of TILE_BLOCKS_PER_SM blocks on an
+    SM, so one block's copies overlap another's compare-exchanges (1
+    plane: 2^14 rows = 66 KB; 3: 2^13 = 99 KB)."""
+    budget = config_lib.SMEM_BYTES // config_lib.TILE_BLOCKS_PER_SM
+    log_t = 1
+    while tile_smem_bytes(n_planes, log_t + 1) <= budget:
+        log_t += 1
+    return log_t
+
+
+def tile_geometry(n_planes: int, log_t: int) -> tuple[int, int]:
+    """(e, threads) of a tile-kernel launch: a thread holds E = 2^e rows of
+    every plane in registers (the most with E * planes <= MAX_TILE_WORDS,
+    and E <= 2^log_t), and a block has up to MAX_TILE_THREADS threads,
+    each looping over 2^log_t / (E * threads) units of E rows."""
+    e = min((config_lib.MAX_TILE_WORDS // n_planes).bit_length() - 1, log_t)
+    return e, min(config_lib.MAX_TILE_THREADS, 1 << (log_t - e))
+
+
+def tile_phases(log_t: int, e: int, k_first: int, k_last: int) -> list:
+    """The tile kernel's schedule of levels k_first..k_last: its phases in
+    order, one barrier before each. :func:`tile_pass` passes this list to
+    the kernel, which runs it as given.
+
+    ("shared", k, lo, c): strides 2^(lo+c-1)..2^lo of level k, all of
+    2^(e+5) and more, c <= e; a unit gathers the 2^c rows they connect
+    through shared memory.
+    ("register", k, k_end, top): E = 2^e consecutive rows a unit, level k
+    from stride 2^top down, then levels k+1..k_end whole; strides of 2^e
+    and more pair lanes of one warp (shuffles), smaller ones registers of
+    one thread. Every level after k whose strides stay below 2^(e+5)
+    joins it."""
+    big = e + SHUFFLE_STRIDES
+    phases = []
+    k = k_first
+    while k <= k_last:
+        hi = min(k, log_t) - 1
+        while hi >= big:
+            c = min(e, hi - big + 1)
+            phases.append(("shared", k, hi - c + 1, c))
+            hi -= c
+        k_end = k
+        while k_end < k_last and min(k_end + 1, log_t) <= big:
+            k_end += 1
+        phases.append(("register", k, k_end, hi))
+        k = k_end + 1
+    return phases
 
 
 def cross_strides(n_planes: int) -> int:
@@ -262,7 +326,7 @@ def plan_passes(logn: int, k_first: int, n_planes: int, *,
     :func:`cross_strides` (more cross passes at a small logn)."""
     log_t = tile_log_rows(n_planes) if log_t is None else log_t
     c_max = cross_strides(n_planes) if c_max is None else c_max
-    if not 1 <= log_t <= tile_log_rows(n_planes):
+    if log_t < 1 or tile_smem_bytes(n_planes, log_t) > config_lib.SMEM_BYTES:
         raise ValueError(f"log_t = {log_t}: {n_planes} plane(s) of 2^{log_t} "
                          f"rows exceed {config_lib.SMEM_BYTES} bytes of shared "
                          "memory")

@@ -4,8 +4,9 @@ Counterpart of ``cuda/radixsort_tpu/kernels/stage.py::partition_stage`` (and
 of the in-tile rank in ``kernels/tiles.py``). Plane 0 holds the keys; the
 pass orders every plane stably by the digit (key >> shift) & (2^width - 1),
 placing bucket d at the global base ``gbase[d]``. On a CUDA tensor the
-wrapper launches the hand-written kernels in ``csrc/stage.cu``; on a CPU
-tensor it runs :func:`partition_stage_plain`. There is no other route.
+wrapper launches the hand-written onesweep kernel in ``csrc/stage.cu`` (one
+launch per group of up to 8 planes); on a CPU tensor it runs
+:func:`partition_stage_plain`. There is no other route.
 """
 
 from __future__ import annotations
@@ -18,7 +19,25 @@ from cuda.radixsort_tpu_torch import config as config_lib
 from cuda.radixsort_tpu_torch.kernels.histogram import WIDTHS, digits
 from cuda.radixsort_tpu_torch.utils import build
 
-LAUNCHES = 0  # calls of partition_stage that launched the stage kernels
+LAUNCHES = 0  # calls of partition_stage that launched the stage kernel
+
+
+def stage_smem_bytes(cfg: config_lib.SortConfig, width: int) -> int:
+    """Shared memory of one block of the kernel, which the launch gives it
+    (``csrc/stage.cu`` lays it out and traps if it is short): int64 offsets
+    and a scan buffer, the tile's values (4 B a key) and digits (1 B), the
+    per-warp digit counts and the digits' counts and starts."""
+    tile, nb = cfg.tile_elems, 1 << width
+    return (nb * 8 + 32 * 8 + tile * 4 + (cfg.block_threads // 32) * nb * 4
+            + nb * 8 + 16 + tile)
+
+
+def stage_scratch(n: int, cfg: config_lib.SortConfig,
+                  width: int) -> tuple[int, int]:
+    """(n_tiles, status words) of one pass: a tile claim counter and one
+    64-bit lookback status word per (tile, digit)."""
+    n_tiles = -(-n // cfg.tile_elems)
+    return n_tiles, 1 + n_tiles * (1 << width)
 
 
 def _check(planes, gbase, shift, width, out):
@@ -101,19 +120,17 @@ def partition_stage(planes, gbase, *, shift: int, width: int = 4, out=None,
     n = planes[0].numel()
     if n == 0:
         return out
-    nb = 1 << width
-    n_tiles = -(-n // cfg.tile_elems)
-    counts = torch.empty(nb * n_tiles, dtype=torch.int32, device=dev)
-    offsets = torch.empty(nb * n_tiles, dtype=torch.int64, device=dev)
+    _, words = stage_scratch(n, cfg, width)
+    status = torch.empty(words, dtype=torch.int64, device=dev)  # zeroed by C
     ins, outs = build.ptr_array(planes), build.ptr_array(out)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rs_partition_stage(
             ctypes.cast(ins, ctypes.c_void_p),
             ctypes.cast(outs, ctypes.c_void_p), len(planes),
-            gbase.data_ptr(), n, shift, width, counts.data_ptr(),
-            offsets.data_ptr(), cfg.block_threads, cfg.items_per_thread,
-            stream)
+            gbase.data_ptr(), n, shift, width, status.data_ptr(),
+            cfg.block_threads, cfg.items_per_thread,
+            stage_smem_bytes(cfg, width), stream)
     build.check(err, "partition_stage")
     LAUNCHES += 1
     return out

@@ -13,6 +13,10 @@ flags, so an edited source rebuilds and an unchanged one loads at once.
 Every pointer and the stream are passed as ``ctypes.c_void_p``. ptxas
 reports each kernel's registers and spills (``-Xptxas -v``); a build keeps
 that report in ``PTXAS_REPORT``.
+
+The limits the kernels are built for are set once, in ``config.py``: the
+build writes them into the header ``rs_limits.h`` (:func:`limits_header`)
+that the sources include.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+from cuda.radixsort_tpu_torch import config as config_lib
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(os.path.dirname(_PKG))
@@ -40,13 +46,14 @@ _SIGNATURES = {
     # keys, n, n_stages, width, out, grid, threads, stream
     "rs_digit_histograms": [_P, _I64, _I, _I, _P, _I, _I, _P],
     # in_planes (void**), out_planes (void**), n_planes, gbase, n, shift,
-    # width, counts, offsets, threads, items, stream
-    "rs_partition_stage": [_P, _P, _I, _P, _I64, _I, _I, _P, _P, _I, _I, _P],
+    # width, status, threads, items, smem, stream
+    "rs_partition_stage": [_P, _P, _I, _P, _I64, _I, _I, _P, _I, _I, _I64,
+                           _P],
     # values, flags, out, n, dtype, op, n_tiles, agg, aflag, carry, stream
     "rs_segmented_scan": [_P, _P, _P, _I64, _I, _I, _I64, _P, _P, _P, _P],
-    # planes (void**), n_planes, n, log_t, k_first, k_last, net_tile, n_cmp,
-    # stream
-    "rs_bitonic_tile": [_P, _I, _I64, _I, _I, _I, _I, _I, _P],
+    # planes (void**), n_planes, n, log_t, log_e, threads, phases (int*),
+    # n_phases, net_tile, n_cmp, smem, stream
+    "rs_bitonic_tile": [_P, _I, _I64, _I, _I, _I, _P, _I, _I, _I, _I64, _P],
     # planes (void**), n_planes, n, k, lo, c, net_tile, n_cmp, stream
     "rs_bitonic_cross": [_P, _I, _I64, _I, _I, _I, _I, _I, _P],
 }
@@ -71,8 +78,23 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def limits_header() -> str:
+    """``rs_limits.h``: config.py's kernel limits as macros."""
+    limits = {
+        "RS_MAX_PLANES": config_lib.MAX_PLANES,
+        "RS_MAX_CROSS_WORDS": config_lib.MAX_CROSS_WORDS,
+        "RS_MAX_TILE_WORDS": config_lib.MAX_TILE_WORDS,
+        "RS_MAX_TILE_THREADS": config_lib.MAX_TILE_THREADS,
+        "RS_TILE_BLOCKS_PER_SM": config_lib.TILE_BLOCKS_PER_SM,
+        "RS_MAX_STAGE_THREADS": config_lib.MAX_STAGE_THREADS,
+        "RS_STAGE_ITEMS": ", ".join(map(str, config_lib.STAGE_ITEMS)),
+    }
+    return "".join(f"#define {k} {v}\n" for k, v in limits.items())
+
+
 def _digest(srcs: list[str]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(limits_header().encode())
     for path in srcs:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -88,10 +110,13 @@ def _build() -> str:
     if os.path.exists(so):
         return so
     nvcc = _find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
+    include = f"{tmp}.include"
+    os.makedirs(include, exist_ok=True)
+    with open(os.path.join(include, "rs_limits.h"), "w") as f:
+        f.write(limits_header())
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", include, "-c", "-o", obj, src]
             for src, obj in zip(srcs, objs)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
@@ -110,6 +135,7 @@ def _build() -> str:
         for obj in objs:
             if os.path.exists(obj):
                 os.remove(obj)
+        shutil.rmtree(include, ignore_errors=True)
     os.replace(tmp, so)
     return so
 

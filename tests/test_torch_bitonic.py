@@ -171,9 +171,10 @@ def test_wrappers_reject_bad_input():
 
 
 def test_network_geometry_is_checked():
-    # the largest tiles whose planes fit 227 KB of shared memory, and the
-    # widest spans whose rows fit a cross thread's 64 words
-    assert [tb.tile_log_rows(p) for p in (1, 2, 3, 4)] == [15, 14, 14, 13]
+    # the largest tiles whose padded planes fit half of 227 KB of shared
+    # memory (two blocks an SM), and the widest spans whose rows fit a
+    # cross thread's 64 words
+    assert [tb.tile_log_rows(p) for p in (1, 2, 3, 4)] == [14, 13, 13, 12]
     assert [tb.cross_strides(p) for p in (1, 2, 3, 4)] == [6, 5, 4, 4]
     with pytest.raises(ValueError, match="shared memory"):
         tb.plan_passes(20, 1, 1, log_t=16)
@@ -181,3 +182,94 @@ def test_network_geometry_is_checked():
         tb.plan_passes(20, 1, 3, c_max=5)
     with pytest.raises(ValueError, match="split_sort_min_logn"):
         rt.SortConfig(split_sort_min_logn=10)
+
+
+@pytest.mark.parametrize("n_planes", [1, 2, 3, 4])
+def test_tile_geometry(n_planes):
+    cfg = rt.config
+    budget = cfg.SMEM_BYTES // cfg.TILE_BLOCKS_PER_SM
+    top = tb.tile_log_rows(n_planes)
+    assert tb.tile_smem_bytes(n_planes, top) <= budget
+    assert tb.tile_smem_bytes(n_planes, top + 1) > budget
+    for log_t in range(1, top + 2):
+        e, threads = tb.tile_geometry(n_planes, log_t)
+        # registers: E = 2^e rows of every plane, at most 64 words
+        assert (n_planes << e) <= cfg.MAX_TILE_WORDS <= 64
+        assert 1 <= e <= log_t
+        assert tb.tile_smem_bytes(n_planes, log_t) <= cfg.SMEM_BYTES
+        # threads x E rows cover the tile in whole passes of the block
+        assert threads & (threads - 1) == 0
+        assert threads <= cfg.MAX_TILE_THREADS
+        passes = (1 << log_t) // (threads << e)
+        assert passes >= 1 and threads * (1 << e) * passes == 1 << log_t
+        assert threads >= 32 or passes == 1
+
+
+def _phase_stages(phases, log_t, e):
+    """The (k, j, kind) stages the tile kernel runs for a phase list: kind
+    'shared', 'shuffle' (strides of 2^e and more in a register phase) or
+    'register'."""
+    out = []
+    for kind, k, a, b in phases:
+        if kind == "shared":  # strides 2^(a+b-1)..2^a of level k
+            out += [(k, j, "shared") for j in range(a + b - 1, a - 1, -1)]
+            continue
+        stages = [(k, j) for j in range(b, -1, -1)]  # level k from 2^b
+        stages += [(kk, j) for kk in range(k + 1, a + 1)  # levels k+1..k_end
+                   for j in range(min(kk, log_t) - 1, -1, -1)]
+        out += [(kk, j, "shuffle" if j >= e else "register")
+                for kk, j in stages]
+    return out
+
+
+@pytest.mark.parametrize("n_planes,n_cmp", [(1, 1), (2, -1), (3, 2),
+                                            (4, -2), (4, 4)])
+@pytest.mark.parametrize("log_t", [2, 7, 12])
+def test_tile_phases_run_the_plain_network(n_planes, n_cmp, log_t):
+    # log_t 2: registers only; 7: registers and shuffles; 12: all three.
+    # The phase list is the one tile_pass hands the kernel.
+    logn, lt_net = 13, 11
+    e, _ = tb.tile_geometry(n_planes, log_t)
+    big = e + tb.SHUFFLE_STRIDES
+
+    def stages(phases):
+        return [(k, j) for k, j, _ in _phase_stages(phases, log_t, e)]
+
+    sort_phases = tb.tile_phases(log_t, e, 1, log_t)
+    assert stages(sort_phases) == [
+        (k, j) for k in range(1, log_t + 1) for j in range(k - 1, -1, -1)]
+    for k in range(log_t + 1, logn + 1):
+        merge = tb.tile_phases(log_t, e, k, k)
+        assert stages(merge) == [(k, j) for j in range(log_t - 1, -1, -1)]
+    kinds = set()
+    for phases in (sort_phases, tb.tile_phases(log_t, e, logn, logn)):
+        for k, j, kind in _phase_stages(phases, log_t, e):
+            kinds.add(kind)
+            assert kind == ("shared" if j >= big else
+                            "shuffle" if j >= e else "register")
+        for kind, k, a, b in phases:
+            if kind == "shared":  # <= e consecutive strides of one level
+                assert 1 <= b <= e and a >= big
+            else:  # the shuffles pair lanes of one warp
+                assert k <= a and b - e < tb.SHUFFLE_STRIDES
+    assert kinds == ({"register"} if log_t <= e else
+                     {"register", "shuffle"} if log_t <= big else
+                     {"register", "shuffle", "shared"})
+
+    planes = [from_numpy(p) for p in _planes(n_planes, n_cmp, "ties",
+                                             seed=log_t + n_planes,
+                                             logn=logn)]
+    want = tb.sort_planes_bitonic_plain([p.clone() for p in planes],
+                                        n_cmp=n_cmp, log_tile=lt_net)
+    views = [p.view(torch.int32) for p in planes]
+    # the kernel's schedule: sort pass, then per level its cross strides
+    # and its tile merge pass, every stage through _stage_plain
+    run = stages(sort_phases)
+    for k in range(log_t + 1, logn + 1):
+        run += [(k, j) for j in range(k - 1, log_t - 1, -1)]
+        run += stages(tb.tile_phases(log_t, e, k, k))
+    assert run == [(k, j) for k in range(1, logn + 1)
+                   for j in range(k - 1, -1, -1)]
+    for k, j in run:
+        tb._stage_plain(views, k, j, lt_net, n_cmp)
+    _assert_planes(planes, [to_numpy(w) for w in want])

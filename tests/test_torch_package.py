@@ -72,6 +72,21 @@ def test_every_kernel_has_a_source_and_a_counter():
         assert re.search(r'extern "C" int rs_\w+', text)
 
 
+def test_kernel_limits_are_set_once():
+    # every limit a source reads is a macro of the header build.py writes
+    # from config.py; no source defines one itself
+    header = build.limits_header()
+    defined = set(re.findall(r"#define (RS_\w+) ", header))
+    assert f"#define RS_MAX_TILE_WORDS {rt.config.MAX_TILE_WORDS}\n" in header
+    assert "#define RS_STAGE_ITEMS 4, 8, 16, 32\n" in header
+    used = set()
+    for src in build.sources():
+        text = open(src).read()
+        assert "#define RS_" not in text, src
+        used |= set(re.findall(r"\b(RS_[A-Z_]+)\b", text))
+    assert used == defined
+
+
 def test_non_cpu_device_never_falls_back():
     keys = torch.empty(8, dtype=torch.uint32, device="meta")
     with pytest.raises(ValueError, match="device"):

@@ -223,7 +223,7 @@ def test_digit_widths(radix_bits):
 def test_config():
     assert rt.resolve(rt.SortConfig()).engine == "radix"
     assert rt.preset((9, 0)).radix_bits == 8
-    assert rt.preset((9, 0)).tile_elems == 256 * 16
+    assert rt.preset((9, 0)).tile_elems == 256 * 32
     with pytest.raises(ValueError):
         rt.preset((8, 0))
     net = rt.SortConfig(engine="bitonic")

@@ -95,3 +95,74 @@ def test_stage_rejects_bad_input():
         tstage.partition_stage([keys], gb, shift=0, width=8, out=[keys])
     with pytest.raises(ValueError):
         tstage.partition_stage([keys, keys[:32]], gb, shift=0, width=8)
+
+
+def _jax_padded(planes, shift, width, rows=32):
+    """The JAX stage kernel on planes padded to whole (rows, 128) tiles
+    with keys of the top digit, which land after every real key; the
+    first n rows of its output are the pass over the n real keys."""
+    n = planes[0].size
+    tile = rows * 128
+    pad = -n % tile + (tile if n == 0 else 0)
+    top = np.uint32(((1 << width) - 1) << shift)
+    padded = [np.concatenate([planes[0], np.full(pad, top, np.uint32)])]
+    padded += [np.concatenate([p, np.zeros(pad, np.uint32)]) for p in planes[1:]]
+    out = jstage.partition_stage(
+        [jnp.asarray(p).reshape(-1, 128) for p in padded],
+        jnp.asarray(_gbase(padded[0], shift, width)), shift=shift,
+        width=width, rows=rows, interpret=True)
+    return [np.asarray(o).reshape(-1)[:n] for o in out]
+
+
+TILE = tstage.config_lib.preset().tile_elems  # the card's stage tile
+
+
+@pytest.mark.parametrize("n,n_planes,width,shift", [
+    (TILE - 1, 1, 4, 0),
+    (TILE, 2, 4, 12),
+    (TILE + 1, 3, 2, 30),
+    (TILE + 1, 10, 2, 8),   # more planes than one kernel launch takes
+])
+def test_stage_tile_edges_match_jax(n, n_planes, width, shift):
+    rng = np.random.default_rng(n + n_planes)
+    planes = [rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+              for _ in range(n_planes)]
+    got = tstage.partition_stage([from_numpy(p) for p in planes],
+                                 from_numpy(_gbase(planes[0], shift, width)),
+                                 shift=shift, width=width)
+    for g, w in zip(got, _jax_padded(planes, shift, width)):
+        np.testing.assert_array_equal(to_numpy(g), w)
+
+
+@pytest.mark.parametrize("n,width", [(1, 8), (TILE, 8), (TILE + 1, 4),
+                                     (1 << 28, 8)])
+def test_stage_scratch_sizes(n, width):
+    # one tile claim counter and one lookback word per (tile, digit)
+    cfg = tstage.config_lib.preset()
+    n_tiles, words = tstage.stage_scratch(n, cfg, width)
+    assert n_tiles == -(-n // cfg.tile_elems)
+    assert (n_tiles - 1) * cfg.tile_elems < n <= n_tiles * cfg.tile_elems
+    assert words == 1 + n_tiles * (1 << width)
+    if n == 1 << 28:  # config 2's pass: at most 128 MiB of status words
+        assert words * 8 <= (1 << 27) + 8
+
+
+@pytest.mark.parametrize("threads", [32, 128, 256, 512])
+@pytest.mark.parametrize("items", tstage.config_lib.STAGE_ITEMS)
+def test_stage_tiles_fit_shared_memory(threads, items):
+    cfg = tstage.config_lib.SortConfig(block_threads=threads,
+                                       items_per_thread=items)
+    for width in (2, 4, 8):
+        smem = tstage.stage_smem_bytes(cfg, width)
+        assert 5 * cfg.tile_elems < smem <= tstage.config_lib.SMEM_BYTES
+
+
+@pytest.mark.parametrize("kw", [dict(block_threads=1024),
+                                dict(block_threads=544),
+                                dict(block_threads=48),
+                                dict(items_per_thread=12),
+                                dict(items_per_thread=64),
+                                dict(items_per_thread=1)])
+def test_config_rejects_what_the_stage_kernel_cannot_run(kw):
+    with pytest.raises(ValueError):
+        tstage.config_lib.SortConfig(**kw)
