@@ -2,15 +2,23 @@
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py              # from the root of the repository
-    python3 chip_smoke.py --profile    # also: phase 8 below
+    python3 chip_smoke.py --profile    # also: phase 7 below
+    python3 chip_smoke.py --parent DIR # also: phase 9 below
 
 Phases, each of which fails loudly (non-zero exit, no result line):
   1. device: a CUDA card must be present; its name and power limit are printed;
   2. build: the five CUDA kernels are built from the repository's own sources;
   3. kernels: digit_histograms and partition_stage on the card against their
-     plain PyTorch versions on the same inputs, bit for bit (tolerance 0), and
-     segmented_scan against its plain version: integers and min/max bit for
-     bit, a float32 sum within SCAN_F32_TOL of its segment's sum of |x|; the
+     plain PyTorch versions on the same inputs, bit for bit (tolerance 0); the
+     histogram also on random, constant, 90%-one-key and Zipf-like keys at
+     widths 8/4/2, at sizes around a block's step and at element offsets
+     1-3, and as limb_histograms of u64 keys' two limbs with
+     aligned and unaligned bit ranges (2^24 and 2^28); segmented_scan against
+     its plain version: integers and min/max bit for bit, a float32 sum within
+     SCAN_F32_TOL of its segment's sum of |x|, at 2^24, around one tile, over
+     many tiles, with values and flags at offsets 1-3, without flags (bit for
+     bit the same as all-zero flags), and three runs of one 2^24 input give
+     the same bits (float32 sums with and without heads, int32 sums); the
      network's tile kernel (sort and merge modes) and cross kernel, alone and
      as whole network sorts and merges, against the plain network bit for
      bit (1-4 planes, n_cmp 1, 2, 3, -1, -2 and all-compare, 2^10..2^28 rows,
@@ -40,16 +48,25 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      (against the rank-scatter route and a stable torch.sort), (f)
      segmented_sort of 2^24 keys in 4096 ragged segments; tile and cross
      launches must be > 0 on each, partition_stage 0 on the pure-sort paths;
-  7. times: CUDA-event medians of every path and of its torch oracle (the
+  7. (--profile only) a torch.profiler breakdown of every path (the network
+     paths included) with the device's idle share, and a sweep of radix_bits,
+     block_threads and items_per_thread on configs 1 and 2;
+  8. times: CUDA-event medians of every path and of its torch oracle (the
      network paths also beside the radix engine), of (d)'s sort on the
      split-sort-merge route beside the padded network, and of each kernel
-     beside its plain version and its one-call torch yardstick (the stage
-     pass also at config 2's 2^28 x 3 planes, the tile kernel's sort and
-     merge passes at path (b)'s 2^28 x 4 planes, the 2^24 network also on
-     tiles twice the preset's, one block an SM);
-  8. (--profile only) a torch.profiler breakdown of every path (the network
-     paths included) with the device's idle share, and a sweep of radix_bits,
-     block_threads and items_per_thread on configs 1 and 2.
+     beside its plain version and its one-call torch yardstick: a kernel's
+     time is the card's alone (utils/profiling.py device_time_ms: batches
+     queued behind a spin kernel), beside one call as a caller waits for it
+     (the stage pass also at config 2's 2^28 x 3 planes, the histogram at
+     2^28 with one and two limbs and on skewed keys, the scan at the
+     FK join's 2^27 + 2^24 rows, the tile kernel's sort and merge passes at
+     path (b)'s 2^28 x 4 planes, the 2^24 network also on tiles twice the
+     preset's, one block an SM);
+  9. (--parent DIR only) the port of another commit, unpacked under DIR
+     (`git archive`), built and imported beside this one: its histogram and
+     scan kernels and the five radix paths against this checkout's on the
+     same inputs (they must agree), timed in turns parent, this, this,
+     parent (the paths in AB_ROUNDS such rounds).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record. The JAX package is never imported.
@@ -62,6 +79,7 @@ import importlib.util
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -78,6 +96,7 @@ N_GROUP = 1 << 26                      # group-by over Zipf-like keys
 N_OPROBE, N_OBUILD = 1 << 22, 1 << 20  # full outer join -> grouped mean
 SEED = 20261016
 RUNS = 5
+AB_ROUNDS = 4  # rounds of parent, this, this, parent for a path's A/B
 SCAN_F32_TOL = 1e-5  # of the segment's running sum of |x|
 MEAN_TOL = 1e-6      # relative, of a grouped mean (a mean of 0 exactly)
 FK = "FK inner join 2^27 x 2^24"
@@ -427,6 +446,83 @@ def phase_kernels(gen: torch.Generator) -> dict:
     return errs
 
 
+HIST_KEY_CASES = ("random", "constant", "skew90", "zipf")
+# u64 keys split into (hi, lo) limbs: the limb bit ranges of sort_pairs at
+# begin_bit/end_bit (0, 64), (5, 59), (28, 36) and (8, 56): unaligned ranges
+# are masked in the kernel
+LIMB_RANGES = ([(0, 32), (0, 32)], [(0, 27), (5, 32)], [(0, 4), (28, 32)],
+               [(0, 24), (8, 32)])
+
+
+def hist_keys(case: str, n: int, gen: torch.Generator) -> torch.Tensor:
+    """make_keys, plus "zipf": the group-by's Zipf-like keys."""
+    if case == "zipf":
+        from cuda.radixsort_tpu_torch.models import flagships
+
+        return flagships.groupby_zipf(n, generator=gen, device="cuda")[1][0]
+    return make_keys(case, n, gen)
+
+
+def u64_limbs(n: int, gen: torch.Generator, offset: int = 0):
+    """(hi, lo) u32 limbs of n random u64 keys, as views at an element
+    offset (unaligned data pointers for offsets 1-3)."""
+    words = rand_bits(2 * (n + offset), torch.uint32, gen).view(torch.int32)
+    return [words[(n + offset) * q:(n + offset) * (q + 1)][offset:]
+            .view(torch.uint32) for q in (0, 1)]
+
+
+def phase_hist_kernel(gen: torch.Generator) -> int:
+    """digit_histograms and limb_histograms on the card against their plain
+    versions, bit for bit: widths 8/4/2 on four key distributions, sizes
+    around a block's step, views at offsets 1-3, and u64 limbs with aligned
+    and unaligned bit ranges at 2^24 and 2^28."""
+    from cuda.radixsort_tpu_torch.kernels import histogram as hist
+
+    err, n_cases = 0, 0
+
+    def check(got, want, what):
+        nonlocal err, n_cases
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        expect(e == 0, f"{what}: max err {e}")
+        err, n_cases = max(err, e), n_cases + 1
+
+    for case in HIST_KEY_CASES:
+        keys = hist_keys(case, N_KEYS, gen)
+        for width in (8, 4, 2):
+            check(hist.digit_histograms(keys, n_stages=32 // width,
+                                        width=width),
+                  hist.digit_histograms_plain(keys, n_stages=32 // width,
+                                              width=width),
+                  f"digit_histograms {case} 2^24 width {width}")
+    step = 16 * hist.THREADS  # keys a block counts per step
+    sizes = [1, 3, 4, 15, 17, step - 1, step, step + 1]
+    for n in sizes:
+        for offset in range(4):
+            keys = rand_bits(n + offset, torch.uint32, gen)[offset:]
+            for width in (8, 4, 2):
+                check(hist.digit_histograms(keys, n_stages=32 // width,
+                                            width=width),
+                      hist.digit_histograms_plain(keys, n_stages=32 // width,
+                                                  width=width),
+                      f"digit_histograms n={n} offset={offset} width={width}")
+    for n in (N_KEYS, N_PAIRS):
+        for i, ranges in enumerate(LIMB_RANGES):
+            if n == N_PAIRS and i > 1:
+                continue
+            limbs = u64_limbs(n, gen, offset=i % 4)
+            check(hist.limb_histograms(limbs, ranges, 8),
+                  hist.limb_histograms_plain(limbs, ranges, 8),
+                  f"limb_histograms u64 n={n} ranges {ranges} offset {i % 4}")
+            del limbs
+        torch.cuda.empty_cache()
+    log(f"[kernels] digit_histograms / limb_histograms == plain on {n_cases} "
+        f"cases (widths 8/4/2 x keys {list(HIST_KEY_CASES)} at 2^24; n = "
+        f"{sizes} at offsets 0-3; u64 "
+        f"limbs {LIMB_RANGES} at 2^24, the first two at 2^28)")
+    return err
+
+
 def check_sort(name, got_keys, keys, descending=False, end_bit=None,
                got_vals=(), vals=()):
     """Bit-exact check against the oracle: torch.sort(stable) of the twiddled
@@ -565,11 +661,62 @@ def phase_scan_kernel(gen: torch.Generator) -> dict:
             values = (torch.randn(n, device="cuda", generator=gen)
                       if dtype == torch.float32 else rand_bits(n, dtype, gen))
             case(values, flags, op)
+    # the single-pass kernel's edges: one tile and around it, many tiles,
+    # values and flags at offsets 1-3 from a 16-B boundary (their pairs
+    # differ), and no flags (a null pointer) against all-zero flags
+    from cuda.radixsort_tpu_torch.kernels import scan as kscan
+
+    tile = kscan.TILE
+    offsets = [(0, 0), (1, 1), (2, 3), (3, 0), (0, 2)]
+    sizes = (1, 5, tile - 1, tile, tile + 1, 37 * tile + 5)
+    for n in sizes:
+        for dtype in (torch.int32, torch.uint32, torch.float32):
+            for v_off, f_off in offsets:
+                if dtype == torch.float32:
+                    values = torch.randn(n + v_off, device="cuda",
+                                         generator=gen)[v_off:]
+                else:
+                    values = rand_bits(n + v_off, dtype, gen)[v_off:]
+                flags = (torch.rand(n + f_off, device="cuda", generator=gen)
+                         < 0.05)[f_off:]
+                for op in ("sum", "min", "max"):
+                    case(values, flags, op)
+    n_null = 0
+    for n in (tile + 1, N_KEYS + 12345):
+        zeros = torch.zeros(n, dtype=torch.bool, device="cuda")
+        for dtype in (torch.int32, torch.uint32, torch.float32):
+            for v_off in (0, 3):
+                values = (torch.randn(n + v_off, device="cuda", generator=gen)
+                          if dtype == torch.float32
+                          else rand_bits(n + v_off, dtype, gen))[v_off:]
+                for op in ("sum", "min", "max"):
+                    got = kscan.segmented_scan(values, None, op)
+                    want = kscan.segmented_scan(values, zeros, op)
+                    torch.cuda.synchronize()
+                    expect(torch.equal(sv(got), sv(want)),
+                           f"segmented_scan {op} {dtype} n={n} offset {v_off}:"
+                           " null flags differ from all-zero flags")
+                    case(values, zeros, op)
+                    n_null += 1
+    # three runs of one 2^24 input give the same bits
+    values_f = torch.randn(N_KEYS, device="cuda", generator=gen) * 100
+    values_i = rand_bits(N_KEYS, torch.int32, gen)
+    heads = torch.rand(N_KEYS, device="cuda", generator=gen) < 0.01
+    for what, values, flags in (("float32 sum, no heads", values_f, None),
+                                ("float32 sum, 1% heads", values_f, heads),
+                                ("int32 sum, 1% heads", values_i, heads)):
+        runs = [kscan.segmented_scan(values, flags, "sum") for _ in range(3)]
+        torch.cuda.synchronize()
+        expect(all(torch.equal(sv(r), sv(runs[0])) for r in runs[1:]),
+               f"segmented_scan {what}: three runs of one input differ")
     log(f"[kernels] segmented_scan == plain on {n_cases} cases (sum/min/max x "
         f"int32/uint32/float32 at 2^24 and 2^24+12345 with 1% heads and NaNs "
-        f"among the floats; {', '.join(edge_flags)}); max abs err {errs['exact']} "
-        f"(integers, min/max), {errs['f32_sum']} (float32 sums, within "
-        f"{SCAN_F32_TOL} of the segment's sum of |x|)")
+        f"among the floats; {', '.join(edge_flags)}; n = {sizes} with values "
+        f"/ flags at element offsets {offsets}); null flags == all-zero flags "
+        f"bit for bit on {n_null} cases; three runs of one 2^24 input the "
+        f"same bits (float32 sum without and with 1% heads, int32 sum); max "
+        f"abs err {errs['exact']} (integers, min/max), {errs['f32_sum']} "
+        f"(float32 sums, within {SCAN_F32_TOL} of the segment's sum of |x|)")
     torch.cuda.empty_cache()
     return errs
 
@@ -1117,9 +1264,18 @@ def phase_times(gen: torch.Generator) -> dict:
     from cuda.radixsort_tpu_torch.kernels import histogram as hist
     from cuda.radixsort_tpu_torch.kernels import scan as kscan
     from cuda.radixsort_tpu_torch.kernels import stage
-    from cuda.radixsort_tpu_torch.utils.profiling import cuda_time_ms
+    from cuda.radixsort_tpu_torch.utils.profiling import (cuda_time_ms,
+                                                          device_time_ms)
 
     t = {}
+
+    def kernel(name, fn):
+        """t[name_ms]: the card's time per call (batches queued ahead, so the
+        host's launch path does not show); t[name_call_ms]: one call as a
+        caller waits for it, the host's launch path included."""
+        t[f"{name}_ms"] = device_time_ms(fn, runs=RUNS)
+        t[f"{name}_call_ms"] = cuda_time_ms(fn, runs=RUNS)
+
     keys1 = rand_bits(N_KEYS, torch.uint32, gen)
     t["sort_ms"] = cuda_time_ms(lambda: rt.sort(keys1), runs=RUNS)
     # baseline: torch.sort of an int32 view whose order is the u32 order
@@ -1127,20 +1283,26 @@ def phase_times(gen: torch.Generator) -> dict:
     t["torch_sort_ms"] = cuda_time_ms(lambda: torch.sort(k32, stable=True),
                                       runs=RUNS)
 
-    t["hist_ms"] = cuda_time_ms(
-        lambda: hist.digit_histograms(keys1, n_stages=4, width=8), runs=RUNS)
+    kernel("hist", lambda: hist.digit_histograms(keys1, n_stages=4, width=8))
     t["hist_plain_ms"] = cuda_time_ms(
         lambda: hist.digit_histograms_plain(keys1, n_stages=4, width=8),
         runs=RUNS)
+    for width in (4, 2):
+        kernel(f"hist_w{width}", lambda: hist.digit_histograms(
+            keys1, n_stages=32 // width, width=width))
+    for case in ("skew90", "zipf"):  # skewed keys, width 8
+        k = hist_keys(case, N_KEYS, gen)
+        t[f"hist_{case}_ms"] = device_time_ms(
+            lambda: hist.digit_histograms(k, n_stages=4, width=8), runs=RUNS)
+        del k
     gbase = hist.stage_bases(hist.digit_histograms(keys1, n_stages=4,
                                                    width=8))[0].contiguous()
     for n_planes in (1, 3):
         planes = [keys1] + [rand_bits(N_KEYS, torch.uint32, gen)
                             for _ in range(n_planes - 1)]
         out = [torch.empty_like(p) for p in planes]
-        t[f"stage{n_planes}_ms"] = cuda_time_ms(
-            lambda: stage.partition_stage(planes, gbase, shift=0, width=8,
-                                          out=out), runs=RUNS)
+        kernel(f"stage{n_planes}", lambda: stage.partition_stage(
+            planes, gbase, shift=0, width=8, out=out))
         t[f"stage{n_planes}_plain_ms"] = cuda_time_ms(
             lambda: stage.partition_stage_plain(planes, gbase, shift=0,
                                                 width=8, out=out), runs=RUNS)
@@ -1151,9 +1313,14 @@ def phase_times(gen: torch.Generator) -> dict:
     out = [torch.empty_like(p) for p in planes]
     gbase = hist.stage_bases(hist.digit_histograms(planes[0], n_stages=4,
                                                    width=8))[0].contiguous()
-    t["stage3_2_28_ms"] = cuda_time_ms(
-        lambda: stage.partition_stage(planes, gbase, shift=0, width=8,
-                                      out=out), runs=RUNS)
+    kernel("stage3_2_28", lambda: stage.partition_stage(
+        planes, gbase, shift=0, width=8, out=out))
+    # config 2's histograms: one u32 limb, and both limbs of its u64 keys in
+    # one launch (the pipeline's call)
+    kernel("hist_2_28", lambda: hist.limb_histograms(
+        [planes[0]], [(0, 32)], 8))
+    kernel("hist2_2_28", lambda: hist.limb_histograms(
+        planes[:2], [(0, 32), (0, 32)], 8))
     del planes, out
     torch.cuda.empty_cache()
 
@@ -1171,19 +1338,28 @@ def phase_times(gen: torch.Generator) -> dict:
     # (plain_scan_fast) beside their one-call torch counterparts
     values = rand_bits(N_KEYS, torch.int32, gen)
     heads = torch.rand(N_KEYS, device="cuda", generator=gen) < 0.01
-    none = torch.zeros(N_KEYS, dtype=torch.bool, device="cuda")
-    t["scan_ms"] = cuda_time_ms(
-        lambda: kscan.segmented_scan(values, heads, "sum"), runs=RUNS)
+    kernel("scan", lambda: kscan.segmented_scan(values, heads, "sum"))
     t["scan_plain_ms"] = cuda_time_ms(
         lambda: kscan.segmented_scan_plain(values, heads, "sum"), runs=RUNS)
-    t["scan_sum_noheads_ms"] = cuda_time_ms(
-        lambda: kscan.segmented_scan(values, none, "sum"), runs=RUNS)
-    t["scan_max_noheads_ms"] = cuda_time_ms(
-        lambda: kscan.segmented_scan(values, none, "max"), runs=RUNS)
-    t["cumsum_ms"] = cuda_time_ms(
+    kernel("scan_f32", lambda: kscan.segmented_scan(
+        values.view(torch.float32), heads, "sum"))
+    kernel("scan_sum_noheads",
+           lambda: kscan.segmented_scan(values, None, "sum"))
+    kernel("scan_max_noheads",
+           lambda: kscan.segmented_scan(values, None, "max"))
+    t["cumsum_ms"] = device_time_ms(
         lambda: torch.cumsum(values, 0, dtype=torch.int32), runs=RUNS)
-    t["cummax_ms"] = cuda_time_ms(lambda: torch.cummax(values, 0), runs=RUNS)
-    del values, heads, none
+    t["cummax_ms"] = device_time_ms(lambda: torch.cummax(values, 0),
+                                    runs=RUNS)
+    del values, heads
+    # at the FK join's size: 2^27 + 2^24 rows
+    values = rand_bits(N_PROBE + N_BUILD, torch.int32, gen)
+    heads = torch.rand(values.numel(), device="cuda", generator=gen) < 0.01
+    kernel("scan_fk", lambda: kscan.segmented_scan(values, heads, "sum"))
+    kernel("scan_fk_noheads",
+           lambda: kscan.segmented_scan(values, None, "sum"))
+    del values, heads
+    torch.cuda.empty_cache()
 
     for name, (fn, args, rows, oracle) in operator_paths(gen).items():
         t[name] = (cuda_time_ms(lambda: fn(*args), runs=RUNS),
@@ -1234,12 +1410,10 @@ def phase_times(gen: torch.Generator) -> dict:
         tile_kw = dict(log_t=lt, k_first=1, k_last=lt, n_cmp=p,
                        net_tile=bk.network_log_tile(p))
         cross_kw = dict(k=logn, lo=logn - c, c=c, n_cmp=p)
-        t[f"tile{p}_ms"] = cuda_time_ms(
-            lambda: bk.tile_pass(planes, **tile_kw), runs=RUNS)
+        kernel(f"tile{p}", lambda: bk.tile_pass(planes, **tile_kw))
         t[f"tile{p}_plain_ms"] = cuda_time_ms(
             lambda: bk.tile_pass_plain(planes, **tile_kw), runs=RUNS)
-        t[f"cross{p}_ms"] = cuda_time_ms(
-            lambda: bk.cross_pass(planes, **cross_kw), runs=RUNS)
+        kernel(f"cross{p}", lambda: bk.cross_pass(planes, **cross_kw))
         t[f"cross{p}_plain_ms"] = cuda_time_ms(
             lambda: bk.cross_pass_plain(planes, **cross_kw), runs=RUNS)
         t[f"network{p}_ms"] = cuda_time_ms(
@@ -1258,16 +1432,192 @@ def phase_times(gen: torch.Generator) -> dict:
     # pass and the top level's merge-mode pass
     planes = network_planes(4, 3, 28, False, gen)
     lt = bk.tile_log_rows(4)
-    t["tile4_2_28_ms"] = cuda_time_ms(
-        lambda: bk.tile_pass(planes, log_t=lt, k_first=1, k_last=lt, n_cmp=3,
-                             net_tile=bk.network_log_tile(4)), runs=RUNS)
-    t["tile4_merge_2_28_ms"] = cuda_time_ms(
-        lambda: bk.tile_pass(planes, log_t=lt, k_first=28, k_last=28,
-                             n_cmp=3), runs=RUNS)
+    kernel("tile4_2_28", lambda: bk.tile_pass(
+        planes, log_t=lt, k_first=1, k_last=lt, n_cmp=3,
+        net_tile=bk.network_log_tile(4)))
+    kernel("tile4_merge_2_28", lambda: bk.tile_pass(
+        planes, log_t=lt, k_first=28, k_last=28, n_cmp=3))
     del planes
     torch.cuda.empty_cache()
     t["peak_gib"] = max(PEAK_BYTES[0], torch.cuda.max_memory_allocated()) / 2**30
     return t
+
+
+def load_parent(root: str) -> dict:
+    """The port of another commit (a `git archive` of it unpacked under
+    ``root``), imported beside this checkout's: its modules load under the
+    port's name and then leave sys.modules, so each copy keeps calling its
+    own code and builds its own kernels (under ``root``/build). Returns
+    {"": the package, "kernels.histogram": ..., "kernels.scan": ...,
+    "models.flagships": ..., "utils.build": ...}."""
+    name = "cuda.radixsort_tpu_torch"
+    ours = {k: m for k, m in sys.modules.items()
+            if k == name or k.startswith(name + ".")}
+    top = sys.modules["cuda"]
+    for k in ours:
+        del sys.modules[k]
+    try:
+        pkg_dir = os.path.join(root, "cuda", "radixsort_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(pkg_dir, "__init__.py"),
+            submodule_search_locations=[pkg_dir])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules[name] = pkg
+        spec.loader.exec_module(pkg)
+        mods = {"": pkg}
+        for sub in ("kernels.histogram", "kernels.scan", "models.flagships",
+                    "utils.build"):
+            mods[sub] = importlib.import_module(f"{name}.{sub}")
+    finally:
+        for k in [k for k in sys.modules
+                  if k == name or k.startswith(name + ".")]:
+            del sys.modules[k]
+        sys.modules.update(ours)
+        setattr(top, "radixsort_tpu_torch", ours[name])
+    return mods
+
+
+def ab_items(par: dict, gen: torch.Generator):
+    """(name, timer, bound_ms, make) of the before/after: make() returns
+    (the parent's call, this checkout's call) on the same inputs. Kernels
+    are timed on the card alone ("device"), paths as a caller waits
+    ("call")."""
+    import cuda.radixsort_tpu_torch as rt
+    from cuda.radixsort_tpu_torch.kernels import histogram as hist
+    from cuda.radixsort_tpu_torch.kernels import scan as kscan
+
+    prt, phist, pscan = par[""], par["kernels.histogram"], par["kernels.scan"]
+    pflag = par["models.flagships"]
+
+    def hist_24(width, case="random"):
+        keys = hist_keys(case, N_KEYS, gen)
+        return (lambda: phist.digit_histograms(keys, n_stages=32 // width,
+                                               width=width),
+                lambda: hist.digit_histograms(keys, n_stages=32 // width,
+                                              width=width))
+
+    def hist_28(n_limbs):
+        limbs = u64_limbs(N_PAIRS, gen)[:n_limbs]
+        return (lambda: [phist.digit_histograms(k, n_stages=4, width=8)
+                         for k in limbs],
+                lambda: hist.limb_histograms(limbs, [(0, 32)] * n_limbs, 8))
+
+    def scan(n, heads, dtype=torch.int32):
+        values = (torch.randn(n, device="cuda", generator=gen) * 100
+                  if dtype == torch.float32 else rand_bits(n, dtype, gen))
+        flags = (torch.rand(n, device="cuda", generator=gen) < 0.01 if heads
+                 else torch.zeros(n, dtype=torch.bool, device="cuda"))
+        return (lambda: pscan.segmented_scan(values, flags, "sum"),
+                lambda: kscan.segmented_scan(values, flags if heads else None,
+                                             "sum"))
+
+    def sort_1():
+        keys = rand_bits(N_KEYS, torch.uint32, gen)
+        return lambda: prt.sort(keys), lambda: rt.sort(keys)
+
+    def pairs_2():
+        keys = rand_bits(N_PAIRS, torch.uint64, gen)
+        pay = rand_bits(N_PAIRS, torch.uint32, gen)
+        return (lambda: prt.sort_pairs(keys, pay),
+                lambda: rt.sort_pairs(keys, pay))
+
+    def operator(recipe, sizes, count=False):
+        from cuda.radixsort_tpu_torch.models import flagships
+
+        fn, args = getattr(flagships, recipe)(*sizes, generator=gen,
+                                              device="cuda")
+        pfn, _ = getattr(pflag, recipe)(*[16] * len(sizes), generator=gen,
+                                        device="cuda")
+        if count:  # the group-by path: the sums, then the counts
+            return (lambda: (pfn(*args), prt.groupby(args[0], agg="count")),
+                    lambda: (fn(*args), rt.groupby(args[0], agg="count")))
+        return lambda: pfn(*args), lambda: fn(*args)
+
+    b24 = bound_ms(4 * N_KEYS, 4 * N_KEYS)[0]
+    return [
+        ("digit_histograms 2^24 width 8", "device", b24, lambda: hist_24(8)),
+        ("digit_histograms 2^24 width 8, 90%-one-key", "device", b24,
+         lambda: hist_24(8, "skew90")),
+        ("digit_histograms 2^24 width 8, Zipf-like keys", "device", b24,
+         lambda: hist_24(8, "zipf")),
+        ("digit_histograms 2^24 width 4", "device",
+         bound_ms(4 * N_KEYS, 8 * N_KEYS)[0], lambda: hist_24(4)),
+        ("digit_histograms 2^24 width 2", "device",
+         bound_ms(4 * N_KEYS, 16 * N_KEYS)[0], lambda: hist_24(2)),
+        ("histograms 2^28 one u32 limb", "device",
+         bound_ms(4 * N_PAIRS, 4 * N_PAIRS)[0], lambda: hist_28(1)),
+        ("histograms 2^28 two u32 limbs (parent: two launches)", "device",
+         bound_ms(8 * N_PAIRS, 8 * N_PAIRS)[0], lambda: hist_28(2)),
+        ("segmented_scan 2^24 int32 sum, 1% heads", "device",
+         bound_ms(9 * N_KEYS, N_KEYS)[0], lambda: scan(N_KEYS, True)),
+        ("segmented_scan 2^24 float32 sum, 1% heads", "device",
+         bound_ms(9 * N_KEYS, N_KEYS)[0],
+         lambda: scan(N_KEYS, True, torch.float32)),
+        ("segmented_scan 2^24 int32 sum, no heads (parent: zero flags)",
+         "device", bound_ms(8 * N_KEYS, N_KEYS)[0],
+         lambda: scan(N_KEYS, False)),
+        ("segmented_scan 2^27+2^24 int32 sum, 1% heads", "device",
+         bound_ms(9 * (N_PROBE + N_BUILD), N_PROBE + N_BUILD)[0],
+         lambda: scan(N_PROBE + N_BUILD, True)),
+        ("segmented_scan 2^27+2^24 int32 sum, no heads", "device",
+         bound_ms(8 * (N_PROBE + N_BUILD), N_PROBE + N_BUILD)[0],
+         lambda: scan(N_PROBE + N_BUILD, False)),
+        ("config 1 sort 2^24 u32", "call", None, sort_1),
+        ("config 2 sort_pairs 2^28 u64+u32", "call", None, pairs_2),
+        (FK, "call", None, lambda: operator("fk_join", (N_PROBE, N_BUILD))),
+        (GROUPBY, "call", None,
+         lambda: operator("groupby_zipf", (N_GROUP,), count=True)),
+        (OUTER, "call", None,
+         lambda: operator("outer_join_agg", (N_OPROBE, N_OBUILD))),
+    ]
+
+
+def phase_ab(gen: torch.Generator, root: str) -> dict:
+    """--parent DIR: the parent commit's kernels and radix paths against
+    this checkout's on the same inputs in the same call, timed in turns
+    parent, this, this, parent (two calls of the card are not comparable
+    at this size). The two must agree: kernels bit for bit (float32 scans
+    within their tolerance), paths on their first output."""
+    from cuda.radixsort_tpu_torch.utils.profiling import (cuda_time_ms,
+                                                          device_time_ms)
+
+    par = load_parent(root)
+    t0 = time.perf_counter()
+    par["utils.build"].library()
+    log(f"[ab] parent port from {root}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name, timer, bound, make in ab_items(par, gen):
+        pf, nf = make()
+        got, want = nf(), pf()
+        if isinstance(want, list) and isinstance(got, torch.Tensor):
+            want = torch.cat(want)  # the parent's one launch per limb
+        while isinstance(got, (tuple, list)):
+            got, want = got[0], want[0]
+        torch.cuda.synchronize()
+        if got.dtype == torch.float32 and "scan" in name:
+            ok = bool(torch.allclose(got, want, rtol=1e-4, atol=1e-2))
+        else:
+            ok = torch.equal(sv(got), sv(want))
+        expect(ok, f"[ab] {name}: parent and this checkout disagree")
+        # kernels are steady on the card: one round; paths wait on the host
+        # too, so they take AB_ROUNDS rounds for their spread
+        t = device_time_ms if timer == "device" else cuda_time_ms
+        parent_ms, ms = [], []
+        for _ in range(1 if timer == "device" else AB_ROUNDS):
+            times = [t(fn, runs=RUNS) for fn in (pf, nf, nf, pf)]
+            parent_ms += [times[0], times[3]]
+            ms += [times[1], times[2]]
+        out[name] = {"timer": timer, "parent_ms": parent_ms, "ms": ms,
+                     "bound_ms": bound}
+        log(f"[ab] {name} ({timer}): parent median "
+            f"{statistics.median(parent_ms):.4f} ms ({min(parent_ms):.4f}-"
+            f"{max(parent_ms):.4f}), this median {statistics.median(ms):.4f} "
+            f"ms ({min(ms):.4f}-{max(ms):.4f}) over {len(ms)} medians of "
+            f"{RUNS} each" + (f"; bound {bound:.4f} ms" if bound else ""))
+        del pf, nf, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 def _device_events(prof) -> list:
@@ -1348,21 +1698,26 @@ def phase_profile(gen: torch.Generator) -> None:
 
 
 def main() -> int:
-    profile_run = "--profile" in sys.argv[1:]
+    args = sys.argv[1:]
+    profile_run = "--profile" in args
+    parent = args[args.index("--parent") + 1] if "--parent" in args else None
     kind, smi = phase_device()
     load_port()
     phase_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     errs = phase_kernels(gen)
+    errs["digit_histograms"] = max(errs["digit_histograms"],
+                                   phase_hist_kernel(gen))
     errs["segmented_scan"] = phase_scan_kernel(gen)
     errs.update(phase_network_kernels(gen))
     launches = phase_slice(gen)
     op_errs = phase_operators(gen, launches)
     phase_network(gen, launches)
-    t = phase_times(gen)
     if profile_run:
         phase_profile(gen)
+    t = phase_times(gen)
+    ab = phase_ab(gen, parent) if parent else None
 
     log(f"[times] config 1 sort 2^24 u32: {t['sort_ms']:.3f} ms = "
         f"{N_KEYS / t['sort_ms'] * 1e3:.4g} keys/s "
@@ -1374,19 +1729,34 @@ def main() -> int:
         ms, oracle_ms, rows = t[name]
         log(f"[times] {name}: {ms:.3f} ms = {rows / ms * 1e3:.4g} rows/s "
             f"(its torch oracle: {oracle_ms:.3f} ms)")
-    log(f"[times] digit_histograms 2^24 width 8: kernel {t['hist_ms']:.4f} ms, "
-        f"plain {t['hist_plain_ms']:.4f} ms")
+    log("[times] kernels: the card's time per call (batches queued ahead), "
+        "then one call as a caller waits for it (host launch path included)")
+    log(f"[times] digit_histograms 2^24 width 8: kernel {t['hist_ms']:.4f} / "
+        f"{t['hist_call_ms']:.4f} ms, plain {t['hist_plain_ms']:.4f} ms; "
+        f"width 4 {t['hist_w4_ms']:.4f} / {t['hist_w4_call_ms']:.4f} ms, "
+        f"width 2 {t['hist_w2_ms']:.4f} / {t['hist_w2_call_ms']:.4f} ms")
+    log(f"[times] digit_histograms 2^24 width 8 on skewed keys: "
+        f"90%-one-key {t['hist_skew90_ms']:.4f} ms, Zipf-like "
+        f"{t['hist_zipf_ms']:.4f} ms")
+    log(f"[times] histograms 2^28 width 8: one u32 limb "
+        f"{t['hist_2_28_ms']:.4f} / {t['hist_2_28_call_ms']:.4f} ms, config "
+        f"2's two limbs in one launch {t['hist2_2_28_ms']:.4f} / "
+        f"{t['hist2_2_28_call_ms']:.4f} ms")
     for p in (1, 3):
         log(f"[times] partition_stage 2^24 width 8, {p} plane(s): kernel "
-            f"{t[f'stage{p}_ms']:.4f} ms, plain "
+            f"{t[f'stage{p}_ms']:.4f} / {t[f'stage{p}_call_ms']:.4f} ms, plain "
             f"{t[f'stage{p}_plain_ms']:.4f} ms")
     log(f"[times] partition_stage 2^28 width 8, 3 planes (config 2's pass): "
-        f"{t['stage3_2_28_ms']:.4f} ms")
+        f"{t['stage3_2_28_ms']:.4f} / {t['stage3_2_28_call_ms']:.4f} ms")
     log(f"[times] segmented_scan 2^24 int32 sum, 1% heads: kernel "
-        f"{t['scan_ms']:.4f} ms, plain {t['scan_plain_ms']:.4f} ms; no heads: "
-        f"sum {t['scan_sum_noheads_ms']:.4f} ms (torch.cumsum "
+        f"{t['scan_ms']:.4f} / {t['scan_call_ms']:.4f} ms, plain "
+        f"{t['scan_plain_ms']:.4f} ms; float32 sum {t['scan_f32_ms']:.4f} ms; "
+        f"no heads: sum {t['scan_sum_noheads_ms']:.4f} ms (torch.cumsum "
         f"{t['cumsum_ms']:.4f} ms), max {t['scan_max_noheads_ms']:.4f} ms "
         f"(torch.cummax {t['cummax_ms']:.4f} ms)")
+    log(f"[times] segmented_scan 2^27+2^24 int32 sum (the FK join's size): "
+        f"1% heads {t['scan_fk_ms']:.4f} / {t['scan_fk_call_ms']:.4f} ms, no "
+        f"heads {t['scan_fk_noheads_ms']:.4f} ms")
     for name in NET_PATHS:
         ms, radix_ms, oracle_ms, rows = t[name]
         log(f"[times] {name}: bitonic {ms:.3f} ms = {rows / ms * 1e3:.4g} "
@@ -1421,10 +1791,17 @@ def main() -> int:
     lt4 = bk.tile_log_rows(4)
     tile4_2_28_bound = bound_ms(8 * 4 * N_PAIRS,
                                 lt4 * (lt4 + 1) // 2 * 4 * N_PAIRS)
+    # histograms: each key read once, each counter written once; one count
+    # per key and stage
     hist_bound = bound_ms(4 * N_KEYS + 4 * 256 * 4, 4 * N_KEYS)
+    hist_2_28_bound = bound_ms(4 * N_PAIRS + 4 * 256 * 4, 4 * N_PAIRS)
+    hist2_2_28_bound = bound_ms(8 * N_PAIRS + 8 * 256 * 4, 8 * N_PAIRS)
     stage_bound = bound_ms(8 * N_KEYS + 4 * 256, N_KEYS)
     stage_2_28_bound = bound_ms(8 * 3 * N_PAIRS + 4 * 256, N_PAIRS)
+    # scans: 4 B of value and 1 B of flag read, 4 B written per row
     scan_bound = bound_ms(9 * N_KEYS, N_KEYS)
+    scan_fk_bound = bound_ms(9 * (N_PROBE + N_BUILD), N_PROBE + N_BUILD)
+    scan_noheads_bound = bound_ms(8 * N_KEYS, N_KEYS)
     record = {"kernels": [
         {"name": "digit_histograms", "route": "cuda",
          "source": "cuda/radixsort_tpu_torch/csrc/histogram.cu",
@@ -1434,6 +1811,13 @@ def main() -> int:
          "ms": t["hist_ms"], "plain_ms": t["hist_plain_ms"],
          "bound_ms": hist_bound[0], "bound_by": hist_bound[1],
          "library_ms": None,
+         "ms_per_call": t["hist_call_ms"],
+         "ms_width_4": t["hist_w4_ms"], "ms_width_2": t["hist_w2_ms"],
+         "ms_skew90": t["hist_skew90_ms"], "ms_zipf": t["hist_zipf_ms"],
+         "ms_2_28_one_limb": t["hist_2_28_ms"],
+         "bound_ms_2_28_one_limb": hist_2_28_bound[0],
+         "ms_2_28_two_limbs": t["hist2_2_28_ms"],
+         "bound_ms_2_28_two_limbs": hist2_2_28_bound[0],
          "shape": "2^24 u32 keys, width 8, 4 stages"},
         {"name": "partition_stage", "route": "cuda",
          "source": "cuda/radixsort_tpu_torch/csrc/stage.cu",
@@ -1441,6 +1825,7 @@ def main() -> int:
          "launches": launches["partition_stage"],
          "max_abs_err": errs["partition_stage"],
          "ms": t["stage1_ms"], "plain_ms": t["stage1_plain_ms"],
+         "ms_per_call": t["stage1_call_ms"],
          "bound_ms": stage_bound[0], "bound_by": stage_bound[1],
          "library_ms": None,
          "ms_3_planes": t["stage3_ms"], "plain_ms_3_planes": t["stage3_plain_ms"],
@@ -1456,6 +1841,12 @@ def main() -> int:
          "f32_sum_tol": f"{SCAN_F32_TOL} of the segment's sum of |x|",
          "ms": t["scan_ms"], "plain_ms": t["scan_plain_ms"],
          "bound_ms": scan_bound[0], "bound_by": scan_bound[1],
+         "ms_per_call": t["scan_call_ms"], "ms_float32": t["scan_f32_ms"],
+         "ms_no_heads": t["scan_sum_noheads_ms"],
+         "bound_ms_no_heads": scan_noheads_bound[0],
+         "ms_2_27_2_24": t["scan_fk_ms"],
+         "bound_ms_2_27_2_24": scan_fk_bound[0],
+         "ms_2_27_2_24_no_heads": t["scan_fk_noheads_ms"],
          "library_ms": t["cumsum_ms"], "library_call": "torch.cumsum int32, no heads",
          "ms_max_no_heads": t["scan_max_noheads_ms"],
          "library_ms_cummax": t["cummax_ms"],
@@ -1466,6 +1857,7 @@ def main() -> int:
          "launches": launches["bitonic_tile"],
          "max_abs_err": errs["bitonic_tile"],
          "ms": t["tile1_ms"], "plain_ms": t["tile1_plain_ms"],
+         "ms_per_call": t["tile1_call_ms"],
          "bound_ms": net_bounds[1][0][0], "bound_by": net_bounds[1][0][1],
          "library_ms": t["torch_sort_ms"],
          "library_call": "torch.sort of the 2^24 u32 bits: the yardstick of "
@@ -1486,6 +1878,7 @@ def main() -> int:
          "launches": launches["bitonic_cross"],
          "max_abs_err": errs["bitonic_cross"],
          "ms": t["cross1_ms"], "plain_ms": t["cross1_plain_ms"],
+         "ms_per_call": t["cross1_call_ms"],
          "bound_ms": net_bounds[1][1][0], "bound_by": net_bounds[1][1][1],
          "library_ms": None,
          "library_note": "no single torch call runs c strides of one "
@@ -1505,6 +1898,8 @@ def main() -> int:
         "network_paths_ms": {name: {"bitonic": t[name][0], "radix": t[name][1],
                                     "oracle": t[name][2]}
                              for name in NET_PATHS}}
+    if ab is not None:
+        record["parent_ab"] = ab
     log(smi)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

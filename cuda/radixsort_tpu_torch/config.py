@@ -26,6 +26,9 @@ MAX_TILE_THREADS = 256    # threads of one tile-kernel block
 TILE_BLOCKS_PER_SM = 2    # tile-kernel blocks that share one SM
 STAGE_ITEMS = (4, 8, 16, 32)  # keys per thread the stage kernel is built for
 MAX_STAGE_THREADS = 512   # the stage kernel's __launch_bounds__
+HIST_MAX_LIMBS = 32       # limb columns one histogram launch counts
+HIST_TABLE_BINS = 1024    # bins of a histogram block's table: a u32 limb's
+#                           4 bytes x 256, a column per lane (128 KB)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,10 @@
 """LSD loop over u32 limb columns — plain torch glue around the two kernels.
 
-Counterpart of ``cuda/radixsort_tpu/kernels/pipeline.py``. Per limb (least
-significant first): one all-digit histogram, read to the host once (one
-sync per limb) for the trivial-pass skip, then one partition stage per
+Counterpart of ``cuda/radixsort_tpu/kernels/pipeline.py``. Before the first
+pass, one histogram launch counts every stage of every limb (histograms do
+not change under the permutations the passes apply) and the stages'
+maxima are read to the host once (one sync per sort) for the trivial-pass
+skip; then, per limb (least significant first), one partition stage per
 digit. The stages ping-pong between two plane sets allocated once per sort.
 """
 
@@ -51,6 +53,15 @@ def sort_limbs(limbs, limb_bits, payloads, cfg):
     pay_slots = [_Slot(t) for t in payloads]
     masked = None  # slot of the masked key copy, for unaligned limbs
 
+    # every limb's stage histograms in one read, and their maxima on the
+    # host in one sync: a stage whose digit puts every key in one bucket is
+    # the identity and is skipped (CUB's dispatch copy shortcut)
+    hist = hist_lib.limb_histograms(limbs, limb_bits, width)
+    bases = hist_lib.stage_bases(hist)
+    hist_max = hist.max(dim=1).values.tolist() if hist.shape[0] else []
+    ranges = hist_lib.limb_stages(limb_bits, width)  # (mask, n_stages)
+    first_row = [sum(st for _, st in ranges[:k]) for k in range(len(ranges))]
+
     for k in range(len(limbs) - 1, -1, -1):
         begin, end = limb_bits[k]
         if begin >= end:
@@ -61,7 +72,7 @@ def sort_limbs(limbs, limb_bits, payloads, cfg):
         else:
             if masked is None:
                 masked = _Slot(limbs[k])
-            mask = ((1 << end) - 1) & ~((1 << begin) - 1)
+            mask = ranges[k][0]
             buf = masked.next_buffer()
             torch.bitwise_and(limb_slots[k].cur.view(torch.int32),
                               mask - (1 << 32) if mask >= 1 << 31 else mask,
@@ -71,15 +82,8 @@ def sort_limbs(limbs, limb_bits, payloads, cfg):
             riders = list(limb_slots)
         slots = [key] + riders + pay_slots
 
-        hist = hist_lib.digit_histograms(key.cur, n_stages=-(-end // width),
-                                         width=width)
-        bases = hist_lib.stage_bases(hist)
-        # trivial-pass skip: a stage whose digit puts every key in one
-        # bucket is the identity (CUB's dispatch copy shortcut). The whole
-        # histogram is read once per limb.
-        hist_max = hist.max(dim=1).values.tolist()
         for shift in _stages_for(begin, end, width):
-            s = shift // width
+            s = first_row[k] + shift // width
             if hist_max[s] == n:
                 continue
             outs = [sl.next_buffer() for sl in slots]

@@ -89,10 +89,10 @@ def _head_flags(keys, equality_op):
 def plain_scan_fast(x: torch.Tensor, op: str) -> torch.Tensor:
     """Unsegmented inclusive scan for the named ops 'max', 'min' and 'sum'
     (same dtype, sums wrap): the segmented-scan kernel with no heads for
-    int32/uint32/float32, torch's cumulative ops for other dtypes."""
+    int32/uint32/float32 (it reads no flags), torch's cumulative ops for
+    other dtypes."""
     if x.dim() == 1 and x.dtype in kscan.DTYPES:
-        flags = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-        return kscan.segmented_scan(x.contiguous(), flags, op)
+        return kscan.segmented_scan(x.contiguous(), None, op)
     if op == "sum":
         return torch.cumsum(x, 0, dtype=x.dtype)
     return {"max": torch.cummax, "min": torch.cummin}[op](x, 0).values

@@ -29,6 +29,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 from cuda.radixsort_tpu_torch import config as config_lib
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,14 +45,16 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # C entry points: name -> argtypes. Each returns a cudaError_t as int.
 _SIGNATURES = {
-    # keys, n, n_stages, width, out, grid, threads, stream
-    "rs_digit_histograms": [_P, _I64, _I, _I, _P, _I, _I, _P],
+    # keys (void**), masks (u32*), n_stages (int*), n_limbs, n, width, out,
+    # scratch, table_bins, grid, threads, stream
+    "rs_limb_histograms": [_P, _P, _P, _I, _I64, _I, _P, _P, _I, _I, _I, _P],
     # in_planes (void**), out_planes (void**), n_planes, gbase, n, shift,
     # width, status, threads, items, smem, stream
     "rs_partition_stage": [_P, _P, _I, _P, _I64, _I, _I, _P, _I, _I, _I64,
                            _P],
-    # values, flags, out, n, dtype, op, n_tiles, agg, aflag, carry, stream
-    "rs_segmented_scan": [_P, _P, _P, _I64, _I, _I, _I64, _P, _P, _P, _P],
+    # values, flags (or NULL), out, n, dtype, op, scratch, scratch words,
+    # stream
+    "rs_segmented_scan": [_P, _P, _P, _I64, _I, _I, _P, _I64, _P],
     # planes (void**), n_planes, n, log_t, log_e, threads, phases (int*),
     # n_phases, net_tile, n_cmp, smem, stream
     "rs_bitonic_tile": [_P, _I, _I64, _I, _I, _I, _P, _I, _I, _I, _I64, _P],
@@ -60,6 +64,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_SCRATCH: dict = {}  # (owner, device index, stream) -> stream_scratch's buffer
 PTXAS_REPORT: dict[str, str] = {}  # source file name -> ptxas -v output
 
 
@@ -88,6 +93,8 @@ def limits_header() -> str:
         "RS_TILE_BLOCKS_PER_SM": config_lib.TILE_BLOCKS_PER_SM,
         "RS_MAX_STAGE_THREADS": config_lib.MAX_STAGE_THREADS,
         "RS_STAGE_ITEMS": ", ".join(map(str, config_lib.STAGE_ITEMS)),
+        "RS_HIST_MAX_LIMBS": config_lib.HIST_MAX_LIMBS,
+        "RS_SMEM_BYTES": config_lib.SMEM_BYTES,
     }
     return "".join(f"#define {k} {v}\n" for k, v in limits.items())
 
@@ -164,6 +171,18 @@ def library() -> ctypes.CDLL:
             lib.rs_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def stream_scratch(owner: str, device, stream: int, words: int,
+                   dtype) -> torch.Tensor:
+    """A kernel's scratch for launches on one stream, zero when first made
+    and kept (grown to ``words`` when short): launches on one stream run in
+    order, so they can share it. ``owner`` names the kernel."""
+    key = (owner, device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _SCRATCH[key] = torch.zeros(words, dtype=dtype, device=device)
+    return buf
 
 
 def ptr_array(tensors) -> ctypes.Array:

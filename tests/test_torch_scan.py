@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from cuda.radixsort_tpu.kernels.scan import segmented_scan_pallas
 from cuda.radixsort_tpu.ops import scan as jscan
@@ -187,3 +189,89 @@ def test_plain_scan_and_reduce_with():
     u = rng.integers(0, 2**32, size=N, dtype=np.uint64).astype(np.uint32)
     want = jscan.reduce_with(jnp.asarray(u), "max")
     assert int(to_numpy(tscan.reduce_with(from_numpy(u), "max"))) == int(want)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.float32],
+                         ids=["int32", "uint32", "float32"])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_null_flags_is_all_zero_flags(op, dtype):
+    # head_flags=None: the kernel reads no flags; the plain path scans as
+    # with all-zero flags (row 0 a head), and so does the entry point here
+    rng = np.random.default_rng([len(op), np.dtype(dtype).num, 7])
+    v = from_numpy(_values(dtype, rng, nan=(op != "sum")))
+    want = kscan.segmented_scan_plain(v, torch.zeros(N, dtype=torch.bool), op)
+    for got in (kscan.segmented_scan_plain(v, None, op),
+                kscan.segmented_scan(v, None, op)):
+        np.testing.assert_array_equal(to_numpy(got), to_numpy(want))
+    if dtype == np.int32:
+        np.testing.assert_array_equal(
+            to_numpy(tscan.plain_scan_fast(v, op)),
+            np.asarray(jscan.plain_scan_fast(jnp.asarray(to_numpy(v)), op)))
+    with pytest.raises(ValueError):
+        kscan.segmented_scan(v.reshape(-1, 1), None, op)
+
+
+def _kernel_carry(t, words, window, look_max):
+    """The carry-in of tile t as csrc/scan.cu's lookback computes it.
+    words[u] is ("inc", value) for a tile whose status is INCLUSIVE (a tile
+    holding a head, or one whose own lookback is done) and ("agg", value)
+    otherwise. Lane i of a window reads tile top - i; aggregates passed go to
+    look[depth + i]; at look_max the warp waits on its last window, modelled
+    here by that window's newest tile turning INCLUSIVE. The fold is strictly
+    left to right from the INCLUSIVE value found."""
+    top, depth = t - 1, 0
+    look = [np.float32(0)] * (look_max + window)
+    while True:
+        win = [words[top - i] if top - i >= 0 else None for i in range(window)]
+        stops = [i for i, w in enumerate(win) if w is not None and w[0] == "inc"]
+        if stops:
+            at = stops[0]
+            for i in range(at):
+                look[depth + i] = win[i][1]
+            c = win[at][1]
+            for i in range(depth + at - 1, -1, -1):
+                c = np.float32(c + look[i])
+            return c
+        if depth + window <= look_max:
+            for i in range(window):
+                look[depth + i] = win[i][1]
+            depth += window
+            top -= window
+        else:
+            words[top] = ("inc", words[top][2])
+
+
+def _left_fold(xs):
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = np.float32(acc + x)
+    return acc
+
+
+@settings(max_examples=200, deadline=None)
+@given(data=st.data(), geometry=st.sampled_from([(4, 8), (8, 16), (32, 256)]))
+def test_lookback_carry_is_the_left_fold_from_the_last_head(data, geometry):
+    # float32 tile aggregates, head tiles and tiles whose lookback is done:
+    # the carry-in has the same bits whatever INCLUSIVE tile the lookback
+    # stops at, the left fold of the aggregates from the last head tile
+    window, look_max = geometry
+    n = data.draw(st.integers(2, 3 * look_max))
+    f32 = st.floats(-1e6, 1e6, width=32, allow_nan=False)
+    agg = [np.float32(x) for x in data.draw(st.lists(f32, min_size=n,
+                                                      max_size=n))]
+    rare = data.draw(st.sampled_from([2, 16, 1 << 30]))  # 1 / head rate
+    heads = [True] + [r == 0 for r in data.draw(st.lists(
+        st.integers(0, rare - 1), min_size=n - 1, max_size=n - 1))]
+    done = data.draw(st.lists(st.booleans(), min_size=n, max_size=n))
+    last_head, inc = 0, []
+    for j in range(n):
+        last_head = j if heads[j] else last_head
+        inc.append(_left_fold(agg[last_head:j + 1]))
+    for t in range(1, n):
+        # ("agg", value, the value it publishes once its lookback is done)
+        words = [("inc", inc[j]) if heads[j] or done[j]
+                 else ("agg", agg[j], inc[j]) for j in range(t)]
+        got = _kernel_carry(t, words, window, look_max)
+        h = max(j for j in range(t) if heads[j])
+        want = _left_fold(agg[h:t])
+        assert np.float32(got).view(np.uint32) == want.view(np.uint32), t

@@ -251,3 +251,33 @@ def test_rejects_mismatched_values():
     huge = torch.zeros(1, dtype=torch.uint8).expand(1 << 31)  # no memory
     with pytest.raises(ValueError, match="limited"):
         rt.sort(huge)
+
+
+@pytest.mark.parametrize("begin,end,descending", [
+    (0, 64, False), (5, 59, True), (28, 36, False), (0, 40, True),
+    (32, 64, True)])
+def test_u64_pipeline_one_histogram_per_sort(begin, end, descending,
+                                             monkeypatch):
+    # the LSD loop counts every limb's stages in one histogram call before
+    # the first pass (one launch and one host read on the card), whatever
+    # the bit range; the result is the JAX package's, bit for bit
+    from cuda.radixsort_tpu_torch.kernels import histogram as hist_lib
+
+    calls = []
+    real = hist_lib.limb_histograms
+
+    def counted(limbs, limb_bits, width, **kw):
+        calls.append([tuple(b) for b in limb_bits])
+        return real(limbs, limb_bits, width, **kw)
+
+    monkeypatch.setattr(hist_lib, "limb_histograms", counted)
+    monkeypatch.setattr(hist_lib, "digit_histograms", None)  # not on the path
+    keys = make_keys(np.uint64, seed=begin + end, distinct=700)
+    idx = np.arange(N, dtype=np.uint32)
+    jk, ji = rs.sort_pairs(jnp.asarray(keys), jnp.asarray(idx),
+                           begin_bit=begin, end_bit=end, descending=descending)
+    tk, ti = rt.sort_pairs(from_numpy(keys), from_numpy(idx), begin_bit=begin,
+                           end_bit=end, descending=descending)
+    _eq(tk, np.asarray(jk))
+    _eq(ti, np.asarray(ji))
+    assert len(calls) == 1 and len(calls[0]) == 2, calls
