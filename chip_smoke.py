@@ -8,6 +8,7 @@
 Phases, each of which fails loudly (non-zero exit, no result line):
   1. device: a CUDA card must be present; its name and power limit are printed;
   2. build: the five CUDA kernels are built from the repository's own sources;
+     then `python -m cuda.radixsort_tpu_torch` (its self-test) must pass;
   3. kernels: digit_histograms and partition_stage on the card against their
      plain PyTorch versions on the same inputs, bit for bit (tolerance 0); the
      histogram also on random, constant, 90%-one-key and Zipf-like keys at
@@ -39,6 +40,18 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      models/flagships.py, against oracles built from torch.sort,
      torch.searchsorted, torch.unique and index_add_: bit for bit, the mean
      within MEAN_TOL; launch counters read around each path;
+  5b. plan: the query layer through the entry points a user calls, each
+     path counted and against an oracle of plain torch calls: P1
+     filter_sort_join_query (probe 2^27 x build 2^24), P2 table_query
+     (2^26 x 2^22), P3 window_pipeline (2^26 rows, 1024 partitions), P4
+     three Query plans over 2^26 orders and 2^22 parts (the README's where
+     -> join -> groupby -> order_by -> limit; where -> join -> window ->
+     groupby_agg with sum, mean, median and maxima; where -> distinct), and
+     P5 the operators at 2^26 keys (partition by range and by hash,
+     distinct and unique, top_k 1000 with threshold ties, digit_histogram
+     at widths 8 and 4, histogram_even); integers and medians bit for bit,
+     means within MEAN_TOL; the stage kernel on every path that sorts, the
+     scan kernel on P1-P4 and top_k, the histogram kernel on every path;
   6. network: the same entry points with SortConfig(engine="bitonic"): (a)
      sort 2^24 u32, (b) stable sort_pairs 2^28 u64+u32, (c) the same with
      stable=False (keys bit for bit, (key, payload) multiset equal; a 2^24
@@ -51,7 +64,8 @@ Phases, each of which fails loudly (non-zero exit, no result line):
   7. (--profile only) a torch.profiler breakdown of every path (the network
      paths included) with the device's idle share, and a sweep of radix_bits,
      block_threads and items_per_thread on configs 1 and 2;
-  8. times: CUDA-event medians of every path and of its torch oracle (the
+  8. times: CUDA-event medians of every path (P1-P4 included) and of its
+     torch oracle (the
      network paths also beside the radix engine), of (d)'s sort on the
      split-sort-merge route beside the padded network, and of each kernel
      beside its plain version and its one-call torch yardstick: a kernel's
@@ -305,6 +319,24 @@ def phase_build() -> float:
                 log(f"[build]   {name}: {regs} registers, spill stores {st} "
                     f"/ loads {ld} bytes, stack frame {frame} bytes")
     return secs
+
+
+def phase_self_test() -> None:
+    """``python -m cuda.radixsort_tpu_torch`` on the card, in a process of
+    its own with the checkout first on its path (so the checkout's `cuda`
+    package, not cuda-python's, is the one a startup hook imports): its
+    sort and query checks must pass."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "cuda.radixsort_tpu_torch"],
+                          cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=600)
+    expect(proc.returncode == 0, f"python -m cuda.radixsort_tpu_torch: rc "
+           f"{proc.returncode}: {proc.stderr[-2000:]}")
+    status = json.loads(proc.stdout.strip().splitlines()[-1])
+    expect(status["sort_1M_ok"] and status["query_plan_ok"],
+           f"python -m cuda.radixsort_tpu_torch: {status}")
+    log(f"[self-test] python -m cuda.radixsort_tpu_torch: {status}")
 
 
 def make_keys(case: str, n: int, gen: torch.Generator) -> torch.Tensor:
@@ -862,6 +894,409 @@ def phase_operators(gen: torch.Generator, launches: dict) -> dict:
     return errs
 
 
+# ---------------------------------------------------------------------------
+# the query layer (phase 5b): Table, Query, filter_sort_join and the
+# partition, unique, select, histogram and window operators under them
+# ---------------------------------------------------------------------------
+
+N_FSJ_PROBE, N_FSJ_BUILD = 1 << 27, 1 << 24  # P1, the FK join's sizes
+N_QUERY, N_QUERY_BUILD = 1 << 26, 1 << 22    # P2 and P4 (the reference's 16:1)
+N_WINDOW = 1 << 26                           # P3
+N_OPS = 1 << 26                              # P5
+P1 = "P1 filter_sort_join_query 2^27 x 2^24"
+P2 = "P2 table_query 2^26 x 2^22"
+P3 = "P3 window_pipeline 2^26"
+P4 = "P4 README Query 2^26 x 2^22"
+P4_AGG = "P4 where-join-window-groupby_agg Query 2^26 x 2^22"
+P4_DISTINCT = "P4 where-distinct Query 2^26"
+PLAN_PATHS = (P1, P2, P3, P4, P4_AGG, P4_DISTINCT)
+TOP_K = 1000
+
+
+def sorted_i64(t: torch.Tensor) -> torch.Tensor:
+    """A 1-D integer tensor (u32 included) as int64 values."""
+    return u32_to_i64(t) if t.dtype == torch.uint32 else t.to(torch.int64)
+
+
+def oracle_fsj(pk, pv, bk, bv, threshold):
+    """filter_sort_join by plain torch: the probe rows with pv > threshold
+    in their order, then oracle_fk_join. Returns (keys as int32 bits,
+    probe values, build values, count, rows after the filter)."""
+    sel = torch.nonzero(pv > threshold).squeeze(1)
+    wk, wv, wi, count, _ = oracle_fk_join(bk, bv, pk.view(torch.int32)[sel]
+                                          .view(torch.uint32))
+    return wk, pv[sel][wi.long()], wv, count, sel.numel()
+
+
+def oracle_table_query(k, v, bk, bv):
+    """table_query's Table chain, by plain torch: the chain passes no count
+    from one Table method to the next (as the reference's), so the join
+    sees every probe row (the filter only reorders them) and the group-by
+    sees the join's whole output: every probe row with its build value
+    (every key has a build row) and the join's tail, the build rows with
+    their own values. Returns oracle_groupby's (keys, sums, counts)."""
+    bs = torch.sort(u32_to_i64(bk), stable=True)
+    idx = torch.searchsorted(bs.values, u32_to_i64(k))
+    keys = torch.cat([k.view(torch.int32), bk.view(torch.int32)])
+    vals = torch.cat([bv[bs.indices[idx]], bv])
+    return oracle_groupby(keys.view(torch.uint32), vals)
+
+
+def segment_starts(sorted_cols) -> torch.Tensor:
+    """True where any of the sorted columns changes (and at row 0)."""
+    n = sorted_cols[0].numel()
+    heads = torch.zeros(n, dtype=torch.bool, device=sorted_cols[0].device)
+    heads[0] = True
+    for c in sorted_cols:
+        heads[1:] |= c[1:] != c[:-1]
+    return heads
+
+
+def start_fill(heads: torch.Tensor) -> torch.Tensor:
+    """Each row's segment start position (int64): the heads' positions,
+    gathered by a running count of the heads (torch.cummax, the other
+    way, takes hundreds of ms at 2^26 on the card)."""
+    return torch.nonzero(heads).squeeze(1)[torch.cumsum(heads, 0) - 1]
+
+
+def seg_cumsum(v64: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Inclusive int64 running sums restarting at each segment start."""
+    cs = torch.cumsum(v64, 0)
+    return cs - (cs - v64)[start]
+
+
+def oracle_window(part, order, vals):
+    """window_pipeline by plain torch: a stable sort of part << 32 | order
+    in int64, then row_number, rank and the int64 running sum per
+    partition wrapped to int32."""
+    key = (u32_to_i64(part) << 32) | u32_to_i64(order)
+    perm = torch.sort(key, stable=True).indices
+    sp, so = part.view(torch.int32)[perm], order.view(torch.int32)[perm]
+    heads = segment_starts([sp])
+    ps = start_fill(heads)
+    pos = torch.arange(perm.numel(), device=perm.device)
+    peer = start_fill(heads | segment_starts([so]))
+    cs = seg_cumsum(vals[perm].to(torch.int64), ps)
+    return (sp, (pos - ps + 1).to(torch.int32),
+            (peer - ps + 1).to(torch.int32), wrap_i32(cs))
+
+
+def query_data(gen: torch.Generator):
+    """P4's orders table (k uniform below 2^23, v in [-1000, 1000)) and
+    its parts table (the 2^22 even keys below 2^23, a price each): half the
+    orders find their part."""
+    from cuda.radixsort_tpu_torch.table import Table
+
+    def rng(n, mod):
+        return torch.randint(0, mod, (n,), dtype=torch.int64, device="cuda",
+                             generator=gen)
+
+    k = rng(N_QUERY, 2 * N_QUERY_BUILD).to(torch.int32).view(torch.uint32)
+    v = (rng(N_QUERY, 2000) - 1000).to(torch.int32)
+    pk = (torch.arange(N_QUERY_BUILD, device="cuda", dtype=torch.int32)
+          * 2).view(torch.uint32)
+    price = rng(N_QUERY_BUILD, 1000).to(torch.int32)
+    return Table({"k": k, "v": v}), Table({"k": pk, "price": price})
+
+
+def readme_query(orders, parts):
+    import cuda.radixsort_tpu_torch as rt
+
+    return (rt.Query(orders).where(lambda t: t["v"] > 100)
+            .join(parts, on="k", value="price")
+            .groupby("k", "v", agg="sum")
+            .order_by("v", descending=True).limit(10))
+
+
+def agg_query(orders, parts):
+    import cuda.radixsort_tpu_torch as rt
+
+    return (rt.Query(orders).where(lambda t: t["v"] > 100)
+            .join(parts, on="k", value="price")
+            .window("k", "v", {"rn": "row_number", "cs": ("v", "cumsum")})
+            .groupby_agg(["k"], {"s": ("v", "sum"), "mu": ("v", "mean"),
+                                 "med": ("v", "median"), "n": ("rn", "max"),
+                                 "top": ("cs", "max")}))
+
+
+def distinct_query(orders, parts):
+    import cuda.radixsort_tpu_torch as rt
+
+    return rt.Query(orders).where(lambda t: t["v"] > 100).distinct("k")
+
+
+def query_rows(orders, parts):
+    """The rows P4's plans keep: v > 100 and a part with their key, in row
+    order (k as int64, v)."""
+    k64 = u32_to_i64(orders["k"])
+    ps = torch.sort(u32_to_i64(parts["k"])).values
+    j = torch.searchsorted(ps, k64).clamp_max(ps.numel() - 1)
+    keep = (orders["v"] > 100) & (ps[j] == k64)
+    return k64[keep], orders["v"][keep]
+
+
+def oracle_readme(orders, parts):
+    """Group sums of the kept rows, the 10 largest (ties key-ascending, the
+    order a stable descending sort of the key-ascending groups gives)."""
+    k, v = query_rows(orders, parts)
+    gk, sums, _ = oracle_groupby(k.to(torch.int32).view(torch.uint32), v)
+    top = torch.sort(sums, descending=True, stable=True).indices[:10]
+    return gk[top], sums[top], min(gk.numel(), 10)
+
+
+def oracle_agg(orders, parts):
+    """P4's aggregate plan by plain torch: the kept rows sorted stably by
+    (k, v); per key the int32 sum, the float32 mean float32(sum) /
+    float32(count), the median interpolated in float32 as numpy's linear
+    rule (vlo * (1 - frac) + vhi * frac), the row count (the largest
+    row_number) and the largest running sum."""
+    k, v = query_rows(orders, parts)
+    perm = torch.sort((k << 32) | (v.to(torch.int64) + (1 << 31)),
+                      stable=True).indices
+    k, v = k[perm], v[perm]
+    heads = segment_starts([k])
+    start = start_fill(heads)
+    gk, inv = torch.unique_consecutive(k, return_inverse=True)
+    g = gk.numel()
+    counts = torch.bincount(inv, minlength=g)
+    sums = torch.zeros(g, dtype=torch.int64, device=k.device)
+    sums.index_add_(0, inv, v.to(torch.int64))
+    s32 = wrap_i32(sums)
+    mean = s32.to(torch.float32) / counts.to(torch.int32).to(torch.float32)
+    first = torch.nonzero(heads).squeeze(1)
+    idx_f = (counts - 1).to(torch.float32) * torch.tensor(0.5, device=k.device)
+    lo, hi = torch.floor(idx_f), torch.ceil(idx_f)
+    frac = idx_f - lo
+    vf = v.to(torch.float32)
+    vlo, vhi = vf[first + lo.long()], vf[first + hi.long()]
+    med = vlo * (1 - frac) + vhi * frac
+    cs = wrap_i32(seg_cumsum(v.to(torch.int64), start))
+    top = torch.full((g,), -(1 << 31), dtype=torch.int32, device=k.device)
+    top.scatter_reduce_(0, inv, cs, "amax")
+    return (gk.to(torch.int32), s32, mean, med, counts.to(torch.int32), top)
+
+
+def plan_paths(gen: torch.Generator) -> dict:
+    """name -> (fn, args, rows, oracle) of the query-layer paths P1-P4."""
+    from cuda.radixsort_tpu_torch.models import flagships
+
+    fsj = flagships.filter_sort_join_query(N_FSJ_PROBE, N_FSJ_BUILD,
+                                           generator=gen, device="cuda")
+    tq = flagships.table_query(N_QUERY, N_QUERY_BUILD, generator=gen,
+                               device="cuda")
+    wp = flagships.window_pipeline(N_WINDOW, generator=gen, device="cuda")
+    orders, parts = query_data(gen)
+    threshold = flagships.PROBE_VALUE_RANGE // 2
+
+    def run_plan(make):
+        return lambda o, p: make(o, p).run()
+
+    return {
+        P1: (*fsj, N_FSJ_PROBE + N_FSJ_BUILD,
+             lambda pk, pv, bk, bv: oracle_fsj(pk, pv, bk, bv, threshold)),
+        P2: (*tq, N_QUERY + N_QUERY_BUILD, oracle_table_query),
+        P3: (*wp, N_WINDOW, oracle_window),
+        P4: (run_plan(readme_query), (orders, parts),
+             N_QUERY + N_QUERY_BUILD, oracle_readme),
+        P4_AGG: (run_plan(agg_query), (orders, parts),
+                 N_QUERY + N_QUERY_BUILD, oracle_agg),
+        P4_DISTINCT: (run_plan(distinct_query), (orders, parts), N_QUERY,
+                      lambda o, p: torch.unique(
+                          u32_to_i64(o["k"])[o["v"] > 100])),
+    }
+
+
+def expect_equal(name: str, what: str, got: torch.Tensor,
+                 want: torch.Tensor) -> None:
+    e = max_abs_err(got, want)
+    expect(e == 0, f"{name}: {what} differ from the oracle (max err {e})")
+
+
+def check_plan_path(name: str, out, args, oracle) -> float:
+    """One query-layer path's output against its oracle: integers and the
+    median bit for bit, the mean within MEAN_TOL. Returns the mean's
+    largest relative error (0 where there is none)."""
+    want = oracle(*args)
+    if name == P1:
+        k2, pv2, bv2, cnt, stats = out
+        wk, wpv, wbv, c, n_filtered = want
+        expect(int(cnt) == c and int(stats.rows_joined) == c
+               and int(stats.rows_after_filter) == n_filtered
+               and int(stats.rows_in) == N_FSJ_PROBE,
+               f"{name}: counts {int(cnt)} / {tuple(int(s) for s in stats)}, "
+               f"oracle {c} / {n_filtered}")
+        for what, g, w in (("keys", k2[:c], wk),
+                           ("probe values", pv2[:c], wpv),
+                           ("build values", bv2[:c], wbv)):
+            expect_equal(name, what, g, w)
+        log(f"[plan] {name}: keys, probe and build values == oracle bit for "
+            f"bit ({n_filtered} rows pass the filter, {c} joined)")
+        return 0.0
+    if name == P2:
+        gk, gs, cnt = out
+        wk, ws, _ = want
+        c = wk.numel()
+        expect(int(cnt) == c, f"{name}: {int(cnt)} groups, oracle {c}")
+        expect_equal(name, "keys", gk[:c], wk)
+        expect_equal(name, "sums", gs[:c], ws)
+        log(f"[plan] {name}: keys and int32 sums == oracle bit for bit "
+            f"({c} groups)")
+        return 0.0
+    if name == P3:
+        sp, rn, rk, cs, cnt = out
+        expect(int(cnt) == N_WINDOW, f"{name}: count {int(cnt)}")
+        for what, g, w in zip(("partitions", "row_number", "rank", "cumsum"),
+                              (sp, rn, rk, cs), want):
+            expect_equal(name, what, g, w)
+        log(f"[plan] {name}: partition, row_number, rank and int32 running "
+            f"sums == oracle bit for bit")
+        return 0.0
+    t, cnt, stats = out
+    expect(int(list(stats.values())[-1]) == int(cnt),
+           f"{name}: the last stage's count is not the plan's")
+    if name == P4:
+        wk, ws, c = want
+        expect(int(cnt) == c, f"{name}: count {int(cnt)}, oracle {c}")
+        expect_equal(name, "keys", t["k"][:c], wk)
+        expect_equal(name, "sums", t["v"][:c], ws)
+        log(f"[plan] {name}: the 10 largest group sums and their keys == "
+            f"oracle bit for bit")
+        return 0.0
+    if name == P4_DISTINCT:
+        c = want.numel()
+        expect(int(cnt) == c, f"{name}: count {int(cnt)}, oracle {c}")
+        expect_equal(name, "keys", t["k"][:c].view(torch.int32),
+                     want.to(torch.int32))
+        log(f"[plan] {name}: {c} distinct keys == torch.unique bit for bit")
+        return 0.0
+    gk, s, mean, med, n, top = want
+    c = gk.numel()
+    expect(int(cnt) == c, f"{name}: count {int(cnt)}, oracle {c}")
+    for what, col, w in (("keys", "k", gk), ("sums", "s", s),
+                         ("medians", "med", med), ("row counts", "n", n),
+                         ("largest running sums", "top", top)):
+        expect_equal(name, what, t[col][:c], w)
+    diff = (t["mu"][:c] - mean).abs()
+    expect(bool((diff <= MEAN_TOL * mean.abs()).all()),
+           f"{name}: a mean is off by more than {MEAN_TOL} relative")
+    rel = float((diff / mean.abs().clamp_min(1e-30)).max())
+    log(f"[plan] {name}: keys, sums, medians, row counts and running sums == "
+        f"oracle bit for bit, means within {rel} relative ({c} groups)")
+    return rel
+
+
+def operator_cases(gen: torch.Generator) -> dict:
+    """name -> (fn, needs, check) of P5: each operator once at 2^26 keys,
+    against plain torch."""
+    import cuda.radixsort_tpu_torch as rt
+
+    keys = rand_bits(N_OPS, torch.uint32, gen)
+    k64 = u32_to_i64(keys)
+    pay = torch.arange(N_OPS, dtype=torch.int32, device="cuda")
+    k24 = (k64 & ((1 << 24) - 1)).to(torch.int32).view(torch.uint32)
+    ties = (k64 & 0xFFFF).to(torch.int32)  # 1024 copies of each value
+    samples = torch.randn(N_OPS, device="cuda", generator=gen)
+
+    def hash_ids(x):
+        """The partition hash's top 8 bits, in int64 without a wrapping
+        multiply: (h * c) mod 2^32 from c times h's two 16-bit halves."""
+        m = 0xFFFFFFFF
+
+        def mul(h, c):
+            return ((h & 0xFFFF) * c + (((h >> 16) * c) & 0xFFFF) * 65536) & m
+        h = mul(x, 0x9E3779B1)
+        h ^= h >> 15
+        h = mul(h, 0x85EBCA77)
+        h ^= h >> 13
+        return h >> 24
+
+    def check_partition(out, ids):
+        ko, po, offs = out
+        order = torch.sort(ids, stable=True).indices
+        expect_equal("partition", "keys", ko, keys.view(torch.int32)[order])
+        expect_equal("partition", "payload", po, pay[order])
+        counts = torch.bincount(ids, minlength=256)
+        want = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
+                          torch.cumsum(counts, 0)]).to(torch.int32)
+        expect_equal("partition", "offsets", offs, want)
+
+    def check_unique(out):
+        (dv, dc), (uv, uc) = out
+        want = torch.unique(u32_to_i64(k24)).to(torch.int32)
+        c = want.numel()
+        expect(int(dc) == c and int(uc) == c,
+               f"distinct / unique: {int(dc)} / {int(uc)}, oracle {c}")
+        expect_equal("distinct", "values", dv[:c].view(torch.int32), want)
+        expect_equal("unique", "values", uv[:c].view(torch.int32), want)
+
+    def check_top_k(out):
+        vals, idx = out
+        s = torch.sort(ties, descending=True, stable=True)
+        expect_equal("top_k", "values", vals, s.values[:TOP_K])
+        expect_equal("top_k", "indices", idx,
+                     s.indices[:TOP_K].to(torch.int32))
+
+    def check_digits(out):
+        for (shift, bits), got in zip(((16, 8), (4, 4)), out):
+            want = torch.bincount((k64 >> shift) & ((1 << bits) - 1),
+                                  minlength=1 << bits).to(torch.int32)
+            expect_equal("digit_histogram", f"width {bits}", got, want)
+
+    def check_even(out):
+        lo, hi = torch.tensor(-3.0, device="cuda"), torch.tensor(3.0,
+                                                                 device="cuda")
+        bins = torch.floor((samples - lo) * (100 / (hi - lo))).long()
+        ok = (samples >= lo) & (samples < hi)
+        want = torch.bincount(bins[ok].clamp(0, 99), minlength=100)
+        expect_equal("histogram_even", "counts", out, want.to(torch.int32))
+
+    stage, hist, scan = RADIX_OPERATOR[1], RADIX_OPERATOR[0], RADIX_OPERATOR[2]
+    return {
+        "P5 partition 8 bits by range 2^26": (
+            lambda: rt.partition(keys, pay, bits=8), (stage, hist),
+            lambda out: check_partition(out, k64 >> 24)),
+        "P5 partition 8 bits by hash 2^26": (
+            lambda: rt.partition(keys, pay, bits=8, by_hash=True),
+            (stage, hist), lambda out: check_partition(out, hash_ids(k64))),
+        "P5 distinct and unique 2^26": (
+            lambda: (rt.distinct(k24),
+                     rt.unique(torch.sort(u32_to_i64(k24)).values.to(
+                         torch.int32).view(torch.uint32))),
+            (stage, hist), check_unique),
+        f"P5 top_k {TOP_K} of 2^26": (
+            lambda: rt.top_k(ties, TOP_K), (stage, hist, scan), check_top_k),
+        "P5 digit_histogram widths 8 and 4 2^26": (
+            lambda: (rt.digit_histogram(keys, begin_bit=16, bits=8),
+                     rt.digit_histogram(keys, begin_bit=4, bits=4)),
+            (hist,), check_digits),
+        "P5 histogram_even 100 bins 2^26": (
+            lambda: rt.histogram_even(samples, 100, -3.0, 3.0), (hist,),
+            check_even),
+    }
+
+
+def phase_plan(gen: torch.Generator, launches: dict) -> dict:
+    """The query layer's paths P1-P5 once each, counted, against their
+    oracles. Returns the grouped mean's largest relative error."""
+    needs = {P1: RADIX_OPERATOR, P2: RADIX_OPERATOR, P3: RADIX_OPERATOR,
+             P4: RADIX_OPERATOR, P4_AGG: RADIX_OPERATOR,
+             P4_DISTINCT: RADIX_OPERATOR[:2]}
+    errs = {"mean_rel_err": 0.0}
+    paths = plan_paths(gen)
+    for name in PLAN_PATHS:
+        fn, args, _, oracle = paths.pop(name)
+        out = run_counted(name, lambda: fn(*args), needs[name], launches)
+        errs["mean_rel_err"] = max(errs["mean_rel_err"],
+                                   check_plan_path(name, out, args, oracle))
+        del fn, args, out
+        torch.cuda.empty_cache()
+    for name, (fn, kernels, check) in operator_cases(gen).items():
+        check(run_counted(name, fn, kernels, launches))
+        log(f"[plan] {name}: == plain torch bit for bit")
+    torch.cuda.empty_cache()
+    return errs
+
+
 # (planes, n_cmp, logn, heavy ties); n_cmp > 0 with ride planes gets a
 # permutation as its last comparand, so the order is total
 NETWORK_SORTS = [(1, 1, 10, False), (1, 1, 24, False), (1, 1, 20, True),
@@ -1365,6 +1800,13 @@ def phase_times(gen: torch.Generator) -> dict:
         t[name] = (cuda_time_ms(lambda: fn(*args), runs=RUNS),
                    cuda_time_ms(lambda: oracle(*args), runs=RUNS), rows)
         torch.cuda.empty_cache()
+    paths = plan_paths(gen)
+    for name in PLAN_PATHS:
+        fn, args, rows, oracle = paths.pop(name)
+        t[name] = (cuda_time_ms(lambda: fn(*args), runs=RUNS),
+                   cuda_time_ms(lambda: oracle(*args), runs=RUNS), rows)
+        del fn, args, oracle
+        torch.cuda.empty_cache()
 
     # the network: each path on 'bitonic', on 'radix' and its torch oracle
     net = rt.SortConfig(engine="bitonic")
@@ -1655,7 +2097,8 @@ def phase_profile(gen: torch.Generator) -> None:
              "config 2 sort_pairs 2^28 u64+u32":
                  lambda cfg=None: rt.sort_pairs(keys2, pay2, config=cfg)}
     ops = {name: (lambda fn=fn, args=args: fn(*args))
-           for name, (fn, args, _, _) in operator_paths(gen).items()}
+           for name, (fn, args, _, _) in {**operator_paths(gen),
+                                          **plan_paths(gen)}.items()}
     net = rt.SortConfig(engine="bitonic")
     net_paths = network_paths(gen)
     net_paths.pop("_data")
@@ -1704,6 +2147,7 @@ def main() -> int:
     kind, smi = phase_device()
     load_port()
     phase_build()
+    phase_self_test()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     errs = phase_kernels(gen)
@@ -1713,6 +2157,7 @@ def main() -> int:
     errs.update(phase_network_kernels(gen))
     launches = phase_slice(gen)
     op_errs = phase_operators(gen, launches)
+    plan_errs = phase_plan(gen, launches)
     phase_network(gen, launches)
     if profile_run:
         phase_profile(gen)
@@ -1725,7 +2170,7 @@ def main() -> int:
     log(f"[times] config 2 sort_pairs 2^28 u64+u32: {t['pairs_ms']:.3f} ms = "
         f"{N_PAIRS / t['pairs_ms'] * 1e3:.4g} pairs/s "
         f"(torch.sort int64 stable + gather: {t['torch_pairs_ms']:.3f} ms)")
-    for name in (FK, GROUPBY, OUTER):
+    for name in (FK, GROUPBY, OUTER) + PLAN_PATHS:
         ms, oracle_ms, rows = t[name]
         log(f"[times] {name}: {ms:.3f} ms = {rows / ms * 1e3:.4g} rows/s "
             f"(its torch oracle: {oracle_ms:.3f} ms)")
@@ -1892,7 +2337,11 @@ def main() -> int:
         "sort_pairs_per_s": N_PAIRS / t["pairs_ms"] * 1e3,
         "rows_per_s": {name: t[name][2] / t[name][0] * 1e3
                        for name in (FK, GROUPBY, OUTER)},
-        "mean_rel_err": op_errs["mean_rel_err"],
+        "mean_rel_err": max(op_errs["mean_rel_err"],
+                            plan_errs["mean_rel_err"]),
+        "plan_paths_ms": {name: {"port": t[name][0], "oracle": t[name][1],
+                                 "rows": t[name][2]}
+                          for name in PLAN_PATHS},
         "d_sort_ms": {"split_sort_merge": t["split19_ms"],
                       "padded_network": t["split29_ms"]},
         "network_paths_ms": {name: {"bitonic": t[name][0], "radix": t[name][1],

@@ -1,10 +1,11 @@
 """cuda.radixsort_tpu_torch — the PyTorch + CUDA port of cuda.radixsort_tpu.
 
-The LSD radix-sort path, the comparison network and the query operators
-built on them, on NVIDIA Hopper: plain torch glue around five hand-written
-CUDA kernels (``csrc/``): the all-digit histogram, the stable counting
-pass, the segmented scan, and the network's shared-memory tile and
-register cross kernels. The JAX package ``cuda.radixsort_tpu`` is the
+The LSD radix-sort path, the comparison network, the query operators
+built on them and the query layer over those (Table, Query), on NVIDIA
+Hopper: plain torch glue around five hand-written CUDA kernels
+(``csrc/``): the all-digit histogram, the stable counting pass, the
+segmented scan, and the network's shared-memory tile and register cross
+kernels. The JAX package ``cuda.radixsort_tpu`` is the
 reference it is tested against; this package never imports JAX.
 
 Public API (parity: CUB ``device_radix_sort.cuh``, ``device_scan.cuh``,
@@ -19,7 +20,17 @@ Public API (parity: CUB ``device_radix_sort.cuh``, ``device_scan.cuh``,
     join, join_count, join_expand            — sort-coalesce equality joins
     groupby, groupby_multi, groupby_quantile — sort + segmented-scan group-by
     segmented_scan, scan_by_key              — scans that restart at heads
+    partition, bucket_ids, hash32            — stable radix/hash partition
+    unique, run_length_encode,
+    non_trivial_runs, distinct               — runs over sorted keys
+    kth_value, top_k                         — radix select
+    digit_histogram, histogram_even,
+    histogram_range                          — device-wide histograms
+    window                                   — OVER (PARTITION BY p ORDER BY o)
+    Table, table, Query                      — column batches and query plans
     SortConfig, preset, resolve              — tuning policy
+
+``python -m cuda.radixsort_tpu_torch`` runs a one-command self-test.
 """
 
 from cuda.radixsort_tpu_torch.config import SortConfig, preset, resolve  # noqa: F401
@@ -55,6 +66,26 @@ from cuda.radixsort_tpu_torch.ops.setops import (  # noqa: F401
     set_symmetric_difference,
     set_union,
 )
+from cuda.radixsort_tpu_torch.ops.partition import (  # noqa: F401
+    bucket_ids,
+    hash32,
+    partition,
+)
+from cuda.radixsort_tpu_torch.ops.unique import (  # noqa: F401
+    distinct,
+    non_trivial_runs,
+    run_length_encode,
+    unique,
+)
+from cuda.radixsort_tpu_torch.ops.select import kth_value, top_k  # noqa: F401
+from cuda.radixsort_tpu_torch.ops.histogram import (  # noqa: F401
+    digit_histogram,
+    histogram_even,
+    histogram_range,
+)
+from cuda.radixsort_tpu_torch.ops.window import window  # noqa: F401
+from cuda.radixsort_tpu_torch.table import Table, table  # noqa: F401
+from cuda.radixsort_tpu_torch.pipeline.plan import Query  # noqa: F401
 from cuda.radixsort_tpu_torch import twiddle  # noqa: F401
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

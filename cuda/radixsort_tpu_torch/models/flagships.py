@@ -15,6 +15,9 @@ import torch
 from cuda.radixsort_tpu_torch.ops.aggregate import groupby
 from cuda.radixsort_tpu_torch.ops.join import join
 from cuda.radixsort_tpu_torch.ops.sort import sort, sort_pairs, sort_struct
+from cuda.radixsort_tpu_torch.ops.window import window
+from cuda.radixsort_tpu_torch.pipeline.query import filter_sort_join
+from cuda.radixsort_tpu_torch.table import Table
 
 
 def _check_generator(generator: torch.Generator, device) -> torch.device:
@@ -115,11 +118,77 @@ def outer_join_agg(n_probe: int = 1 << 18, n_build: int = 1 << 14, *,
     return fn, (bk, bk.view(torch.int32).clone(), pk)
 
 
+PROBE_VALUE_RANGE = 1 << 20  # filter_sort_join_query's probe values
+
+
+def filter_sort_join_query(n_probe: int = 1 << 18, n_build: int = 1 << 14,
+                           *, generator: torch.Generator, device="cuda"):
+    """The pipelined query: filter -> join -> compact, with stats. Probe
+    values are uniform in [0, PROBE_VALUE_RANGE) and the threshold is half
+    the range, so about half the probe rows pass at any size."""
+    device = _check_generator(generator, device)
+    threshold = PROBE_VALUE_RANGE // 2
+
+    def fn(probe_keys, probe_vals, build_keys, build_vals):
+        return filter_sort_join(probe_keys, probe_vals, build_keys,
+                                build_vals, threshold)
+
+    bk = _arange_u32(n_build, device)
+    pk = _as_u32(_rng_u32(n_probe, generator, device) % n_build)
+    pv = (_rng_u32(n_probe, generator, device)
+          % PROBE_VALUE_RANGE).to(torch.int32)
+    return fn, (pk, pv, bk, bk.view(torch.int32).clone())
+
+
+def table_query(n: int = 1 << 18, n_build: int = 1 << 14, *,
+                generator: torch.Generator, device="cuda"):
+    """Column-batch Table pipeline: filter -> join -> groupby. As in the
+    reference, the Table methods pass no count along: the join and the
+    group-by see the filter's dropped tail rows and the join's tail (the
+    build rows) too."""
+    device = _check_generator(generator, device)
+
+    def fn(k, v, bk, bv):
+        t = Table({"k": k, "v": v})
+        f, _ = t.filter(v > 0)
+        j, _ = f.join(Table({"k": bk, "bval": bv}), on="k", value="bval")
+        g, gcnt = j.groupby("k", "bval", agg="sum")
+        return g["k"], g["bval"], gcnt
+
+    bk = _arange_u32(n_build, device)
+    k = _as_u32(_rng_u32(n, generator, device) % n_build)
+    v = (_rng_u32(n, generator, device) % 200).to(torch.int32) - 100
+    return fn, (k, v, bk, bk.view(torch.int32).clone())
+
+
+def window_pipeline(n: int = 1 << 18, *, generator: torch.Generator,
+                    device="cuda"):
+    """Analytics window pipeline: row_number, rank and a running total per
+    partition, in one struct sort (1024 partitions, order keys below
+    2^20)."""
+    device = _check_generator(generator, device)
+
+    def fn(part, order, vals):
+        sp, _, _, wc, cnt = window(
+            part, order, {"v": vals},
+            (("rn", None, "row_number"), ("rk", None, "rank"),
+             ("cs", "v", "cumsum")))
+        return sp, wc["rn"], wc["rk"], wc["cs"], cnt
+
+    part = _as_u32(_rng_u32(n, generator, device) % (1 << 10))
+    order = _as_u32(_rng_u32(n, generator, device) % (1 << 20))
+    vals = (_rng_u32(n, generator, device) % 99).to(torch.int32)
+    return fn, (part, order, vals)
+
+
 REGISTRY = {
     "sort_u32": sort_u32,
     "sort_pairs_u64": sort_pairs_u64,
     "sort_pairs_u32": sort_pairs_u32,
     "fk_join": fk_join,
     "groupby_zipf": groupby_zipf,
+    "filter_sort_join_query": filter_sort_join_query,
+    "table_query": table_query,
+    "window_pipeline": window_pipeline,
     "outer_join_agg": outer_join_agg,
 }

@@ -1,4 +1,5 @@
-"""Carry state across from the JAX package: arrays bit for bit, and config.
+"""Carry state across from the JAX package: arrays and tables bit for bit,
+and config.
 
 The system has no weights: its data and its sort configuration are the
 state. Arrays move through numpy. Every key and payload dtype crosses
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from cuda.radixsort_tpu_torch import config as config_lib
+from cuda.radixsort_tpu_torch.table import Table
 
 # unsigned numpy dtype -> (same-width signed numpy dtype, torch dtype)
 _BY_NUMPY = {
@@ -53,6 +55,12 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
         signed, ndt = _TO_NUMPY_VIA[t.dtype]
         return t.view(signed).numpy().view(ndt)
     return t.numpy()
+
+
+def table_from_numpy(columns: dict, device):
+    """A port Table of numpy columns, each bit for bit (:func:`from_numpy`),
+    on ``device``: the data counterpart of carrying weights across."""
+    return Table({k: from_numpy(v, device) for k, v in columns.items()})
 
 
 def tree_from_numpy(tree, device="cpu"):

@@ -1,9 +1,13 @@
 """The port's group-by vs the JAX package's default CPU engine: every output
 row (the tail past count included) and count. Integer aggregates, counts,
 min/max and keys bit for bit; float sums, means, variances and quantiles
-within F32_TOL relative (the group's sums may associate differently)."""
+within F32_TOL relative (the group's sums may associate differently).
+Half-precision values: bfloat16 bit for bit; float16 moments within a
+bound derived from each group's row count, against JAX and against a
+float64 truth, and float16 quantiles within one ulp."""
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -134,6 +138,115 @@ def test_groupby_quantile_matches_jax():
         assert_close(got[2], want[2], exact=True)
     with pytest.raises(ValueError):
         rt.groupby_quantile(from_numpy(keys), from_numpy(floats), 1.5)
+
+
+HALF = {"float16": np.float16, "bfloat16": ml_dtypes.bfloat16}
+
+
+def half_bound(agg, n, big, eps):
+    """First-order bound on a group's error, in any summation order, with
+    unit roundoff u = eps / 2 and big = max x^2 over the group's n rows:
+    the sum of x errs by at most (n - 1) u n sqrt(big), so the mean by
+    n u sqrt(big); x^2 rounded and summed, then divided by n, by (n + 1) u
+    big; the mean squared and rounded by (2n + 1) u big; the difference's
+    rounding by u big. A variance is then within c eps big of the truth,
+    c = 3 (n + 1) / 2; a standard deviation within sqrt(c eps big) (since
+    |sqrt(a) - sqrt(b)| <= sqrt(|a - b|)) plus its own rounding, eps
+    sqrt(big); a mean within c eps sqrt(big)."""
+    c = 1.5 * (n + 1)
+    if agg == "var":
+        return c * eps * big
+    if agg == "std":
+        return np.sqrt(c * eps * big) + eps * np.sqrt(big)
+    return c * eps * np.sqrt(big)
+
+
+def _half_data(rng, dtype, masked, n=N):
+    """97 keys, about 31 rows a group (22 under the mask); values of
+    standard deviation 4, so no group's sum of x^2 nears float16's 65504."""
+    keys = rng.integers(0, 97, size=n).astype(np.uint32)
+    vals = (rng.standard_normal(n) * 4).astype(dtype)
+    valid = rng.random(n) < 0.7 if masked else np.ones(n, bool)
+    return keys, vals, valid
+
+
+def _group_truth(keys, vals, valid, agg):
+    """Per group, key-ascending: (rows, max x^2, float64 aggregate)."""
+    out = []
+    x_all = vals.astype(np.float64)
+    for k in np.unique(keys[valid]):
+        x = x_all[valid & (keys == k)]
+        truth = {"mean": x.mean(), "var": x.var(), "std": x.std()}[agg]
+        out.append((x.size, float(np.max(x * x)), truth))
+    return out
+
+
+@pytest.mark.parametrize("agg", ["mean", "var", "std"])
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "valid"])
+@pytest.mark.parametrize("dtype", list(HALF))
+def test_groupby_half_moments_within_derived_bound(dtype, masked, agg):
+    """float16: the port and JAX each within half_bound of the float64
+    truth, and of each other within twice it (the two sides' bounds);
+    bfloat16: the port equals JAX bit for bit, and both meet the bound."""
+    rng = np.random.default_rng(["mean", "var", "std"].index(agg)
+                                + 3 * masked + 6 * (dtype == "bfloat16"))
+    keys, vals, valid = _half_data(rng, HALF[dtype], masked)
+    jv = jnp.asarray(valid) if masked else None
+    tv = from_numpy(valid) if masked else None
+    want = rs.groupby(jnp.asarray(keys), jnp.asarray(vals), agg=agg, valid=jv)
+    got = rt.groupby(from_numpy(keys), from_numpy(vals), agg=agg, valid=tv)
+    assert_close(got[0], want[0], exact=True)
+    assert_close(got[2], want[2], exact=True)
+    c = int(want[2])
+    g = to_numpy(got[1])[:c].astype(np.float64)
+    w = np.asarray(want[1])[:c].astype(np.float64)
+    assert to_numpy(got[1]).dtype == np.asarray(want[1]).dtype
+    truth = _group_truth(keys, vals, valid, agg)
+    assert len(truth) == c
+    eps = float(ml_dtypes.finfo(HALF[dtype]).eps)
+    bounds = np.array([half_bound(agg, n, big, eps) for n, big, _ in truth])
+    exact = np.array([t for _, _, t in truth])
+    # the margins, for `pytest -k half_moments -s`: worst error over the
+    # bound, and the port's distance from JAX in units of eps * max x^2
+    unit = np.array([eps * (big if agg == "var" else np.sqrt(big))
+                     for _, big, _ in truth])
+    print(f"[half] {dtype} {agg} {'valid' if masked else 'all'}: "
+          f"port/bound {np.max(np.abs(g - exact) / bounds):.3f}, "
+          f"JAX/bound {np.max(np.abs(w - exact) / bounds):.3f}, "
+          f"|port - JAX| {np.max(np.abs(g - w) / unit):.3f} units")
+    assert (np.abs(g - exact) <= bounds).all(), "port beyond the bound"
+    assert (np.abs(w - exact) <= bounds).all(), "JAX beyond the bound"
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(g, w)
+    else:
+        assert (np.abs(g - w) <= 2 * bounds).all()
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "valid"])
+@pytest.mark.parametrize("dtype", list(HALF))
+def test_groupby_half_quantiles_within_one_ulp(dtype, masked):
+    """Interpolated quantiles of half values: the port within one ulp of
+    the value dtype of JAX's (float16), bit for bit (bfloat16)."""
+    rng = np.random.default_rng(20 + masked + 2 * (dtype == "bfloat16"))
+    keys, vals, valid = _half_data(rng, HALF[dtype], masked)
+    qs = (0.1, 0.25, 0.5, 0.9)
+    jv = jnp.asarray(valid) if masked else None
+    tv = from_numpy(valid) if masked else None
+    want = rs.groupby_quantile(jnp.asarray(keys), jnp.asarray(vals), qs,
+                               valid=jv)
+    got = rt.groupby_quantile(from_numpy(keys), from_numpy(vals), qs,
+                              valid=tv)
+    assert_close(got[0], want[0], exact=True)
+    assert_close(got[2], want[2], exact=True)
+    c = int(want[2])
+    for gq, wq in zip(got[1], want[1]):
+        g, w = to_numpy(gq)[:c], np.asarray(wq)[:c]
+        assert g.dtype == w.dtype == HALF[dtype]
+        if dtype == "bfloat16":
+            np.testing.assert_array_equal(_raw(g), _raw(w))
+        else:
+            ulp = np.spacing(np.maximum(np.abs(g), np.abs(w)))
+            assert (np.abs(g.astype(np.float64) - w) <= ulp).all()
 
 
 def test_groupby_empty_and_errors():

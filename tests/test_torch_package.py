@@ -28,7 +28,16 @@ def test_imports_with_jax_blocked():
             "cuda.radixsort_tpu_torch.kernels.bitonic, "
             "cuda.radixsort_tpu_torch.ops.merge, "
             "cuda.radixsort_tpu_torch.ops.segmented, "
-            "cuda.radixsort_tpu_torch.ops.setops; "
+            "cuda.radixsort_tpu_torch.ops.setops, "
+            "cuda.radixsort_tpu_torch.ops.partition, "
+            "cuda.radixsort_tpu_torch.ops.unique, "
+            "cuda.radixsort_tpu_torch.ops.select, "
+            "cuda.radixsort_tpu_torch.ops.histogram, "
+            "cuda.radixsort_tpu_torch.ops.window, "
+            "cuda.radixsort_tpu_torch.table, "
+            "cuda.radixsort_tpu_torch.pipeline.query, "
+            "cuda.radixsort_tpu_torch.pipeline.plan, "
+            "cuda.radixsort_tpu_torch.__main__; "
             "import torch; "
             "net = rt.SortConfig(engine='bitonic'); "
             "print(rt.sort(torch.tensor([3, 1, 2])).tolist(), "
@@ -101,6 +110,11 @@ def test_non_cpu_device_never_falls_back():
         bitonic.sort_planes_bitonic([keys])
     with pytest.raises(ValueError, match="device"):
         bitonic.merge_sorted_planes_bitonic([keys], log_block=2)
+    # the operators on the histogram kernel raise too: one digit of a width
+    # the kernel takes, and the 8-bit route of the other widths
+    for bits in (4, 3):
+        with pytest.raises(ValueError, match="device"):
+            rt.digit_histogram(keys, bits=bits)
 
 
 def test_version_and_surface():
@@ -111,5 +125,9 @@ def test_version_and_surface():
                  "groupby", "groupby_multi", "groupby_quantile",
                  "segmented_scan", "scan_by_key", "segmented_sort",
                  "merge_sorted", "merge_sorted_pairs", "set_intersection",
-                 "set_difference", "set_union", "set_symmetric_difference"):
+                 "set_difference", "set_union", "set_symmetric_difference",
+                 "Table", "table", "Query", "partition", "bucket_ids",
+                 "hash32", "kth_value", "top_k", "window", "unique",
+                 "run_length_encode", "non_trivial_runs", "distinct",
+                 "digit_histogram", "histogram_even", "histogram_range"):
         assert hasattr(rt, name)
