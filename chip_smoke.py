@@ -61,6 +61,30 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      (against the rank-scatter route and a stable torch.sort), (f)
      segmented_sort of 2^24 keys in 4096 ragged segments; tile and cross
      launches must be > 0 on each, partition_stage 0 on the pure-sort paths;
+  6b. compat: the CUB- and thrust-shaped surfaces (cub_compat.py,
+     thrust_compat.py), C1-C14, each counted, bit for bit against a
+     plain-torch oracle on the card, then timed: DeviceRadixSort.SortPairs
+     on config 2's input (the same bits as rt.sort_pairs, both timed),
+     SortKeysDescending over bits [4, 20) at 2^24, DeviceSegmentedRadixSort
+     .SortPairs (2^24 keys, 4096 segments as begin and end offsets),
+     DeviceMergeSort.StableSortPairs with a struct comparator at 2^24 (the
+     comparator network, plain torch), thrust.stable_sort_by_key with an
+     (N, 3) float32 value at 2^26, DevicePartition.ThreeWay,
+     DeviceSelect.UniqueByKey, DeviceRunLengthEncode.Encode,
+     DeviceReduce.ReduceByKey, DeviceScan.ExclusiveScan with torch.maximum,
+     DeviceSegmentedReduce.Sum (2^16 segments), DeviceHistogram
+     .MultiHistogramEven (4 channels) and DeviceTopK.MaxPairs (k = 1024) at
+     2^26, and thrust.lower_bound of 2^24 queries into 2^26 sorted keys;
+  6c. external: the out-of-core sorts (ops/external.py, the host merge in
+     csrc/hostutils.cpp built with g++): sort_external of 2^30 u32 keys
+     (BASELINE.json's "1B uint32") in 2^27-row chunks against torch.sort on
+     the card, sort_external_pairs of 2^28 pairs with the row index as
+     payload (stable), the two disk-spill forms at 2^28 under build/ (files
+     removed), join_external at BASELINE's 2^30 probe x 10^8 build (count
+     and checksum against a searchsorted oracle) and materialized at 2^26 x
+     2^22 (row for row); each with its seconds split into copies, card and
+     host merge, the host's RAM and the peak RSS (2^29 and a `reduced` line
+     where the host has too little RAM for 2^30);
   7. (--profile only) a torch.profiler breakdown of every path (the network
      paths included) with the device's idle share, and a sweep of radix_bits,
      block_threads and items_per_thread on configs 1 and 2;
@@ -1692,6 +1716,458 @@ def phase_network(gen: torch.Generator, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# compat: the CUB- and thrust-shaped surfaces
+# ---------------------------------------------------------------------------
+
+N_COMPAT = 1 << 26         # the compat operators' inputs
+N_COMPAT_SEGMENTS = 1 << 16
+COMPAT_TOP_K = 1024
+C_PAIRS = "C1 DeviceRadixSort.SortPairs 2^28 u64+u32"
+C_DESC = "C2 DeviceRadixSort.SortKeysDescending bits [4, 20) 2^24 u32"
+C_SEG = "C3 DeviceSegmentedRadixSort.SortPairs 2^24, 4096 segments"
+C_MSORT = "C4 DeviceMergeSort.StableSortPairs struct comparator 2^24"
+C_TSORT = "C5 thrust.stable_sort_by_key 2^26 u32, (N, 3) f32 values"
+C_3WAY = "C6 DevicePartition.ThreeWay 2^26 int32"
+C_UBK = "C7 DeviceSelect.UniqueByKey 2^26"
+C_RLE = "C8 DeviceRunLengthEncode.Encode 2^26"
+C_RBK = "C9 DeviceReduce.ReduceByKey sum 2^26"
+C_XSCAN = "C10 DeviceScan.ExclusiveScan torch.maximum 2^26 int32"
+C_SRED = "C11 DeviceSegmentedReduce.Sum 2^26, 2^16 segments"
+C_MHIST = "C12 DeviceHistogram.MultiHistogramEven 4 channels, 2^26 samples"
+C_TOPK = "C13 DeviceTopK.MaxPairs k=1024 2^26 u32"
+C_LB = "C14 thrust.lower_bound 2^24 queries into 2^26 sorted u32"
+
+
+def expect_same(name: str, pairs) -> None:
+    """Every (got, want) pair bit for bit (max_abs_err of the bits)."""
+    for i, (g, w) in enumerate(pairs):
+        e = max_abs_err(g, w)
+        expect(e == 0, f"{name}: output {i} differs from the oracle "
+               f"(max err {e})")
+
+
+def by_flag_order(keep: torch.Tensor) -> torch.Tensor:
+    """The rows with keep first, then the rest, each in input order (a
+    stable compaction's permutation)."""
+    return torch.sort((~keep).to(torch.int8), stable=True).indices
+
+
+def sorted_runs(n: int, n_keys: int, gen) -> torch.Tensor:
+    """n sorted int32 keys drawn from [0, n_keys): runs of equal keys."""
+    k = torch.randint(0, n_keys, (n,), device="cuda", generator=gen,
+                      dtype=torch.int32)
+    return torch.sort(k).values
+
+
+def phase_compat(gen: torch.Generator, launches: dict) -> dict:
+    """The compat surfaces' paths C1-C14 once each, counted, bit for bit
+    against plain-torch oracles on the card, then each timed (CUDA-event
+    medians). Returns path -> ms."""
+    import cuda.radixsort_tpu_torch as rt
+    from cuda.radixsort_tpu_torch import cub_compat as cub
+    from cuda.radixsort_tpu_torch import thrust_compat as thrust
+    from cuda.radixsort_tpu_torch.utils.profiling import cuda_time_ms
+
+    t0 = time.perf_counter()
+    times = {}
+
+    def path(name, fn, needs, oracle, runs=RUNS):
+        out = run_counted(name, fn, needs, launches)
+        expect_same(name, oracle(out))
+        del out
+        times[name] = cuda_time_ms(fn, runs=runs, warmup=1)
+        log(f"[compat] {name}: == plain torch bit for bit; "
+            f"{times[name]:.3f} ms")
+        torch.cuda.empty_cache()
+
+    # C1: config 2's input through the CUB entry point, beside rt.sort_pairs
+    keys2 = rand_bits(N_PAIRS, torch.uint64, gen)
+    pay2 = rand_bits(N_PAIRS, torch.uint32, gen)
+
+    def c1_oracle(out):
+        k, v = out
+        check_sort(C_PAIRS, k, keys2, got_vals=[v], vals=[pay2])
+        rk, rv = rt.sort_pairs(keys2, pay2)
+        return [(k, rk), (v, rv)]
+
+    path(C_PAIRS, lambda: cub.DeviceRadixSort.SortPairs(keys2, pay2, N_PAIRS),
+         SORT_KERNELS, c1_oracle)
+    times[C_PAIRS + " (rt.sort_pairs)"] = cuda_time_ms(
+        lambda: rt.sort_pairs(keys2, pay2), runs=RUNS, warmup=1)
+    log(f"[compat] {C_PAIRS}: rt.sort_pairs on the same input "
+        f"{times[C_PAIRS + ' (rt.sort_pairs)']:.3f} ms")
+    del keys2, pay2
+    torch.cuda.empty_cache()
+
+    keys = rand_bits(N_KEYS, torch.uint32, gen)
+    path(C_DESC, lambda: cub.DeviceRadixSort.SortKeysDescending(
+        keys, N_KEYS, 4, 20), SORT_KERNELS,
+        lambda out: [(out, sv(keys)[torch.sort(
+            (u32_to_i64(keys) >> 4) & 0xFFFF, descending=True,
+            stable=True).indices])])
+
+    seg_keys = rand_bits(N_KEYS, torch.uint32, gen)
+    idx = torch.arange(N_KEYS, dtype=torch.int32, device="cuda")
+    offsets = ragged_offsets(N_KEYS, N_SEGMENTS, gen)
+
+    def c3_oracle(out):
+        rows = torch.arange(N_KEYS, device="cuda")
+        seg = torch.searchsorted(offsets[1:-1].to(torch.int64), rows,
+                                 right=True)
+        order = torch.sort((seg << 32) | u32_to_i64(seg_keys),
+                           stable=True).indices
+        return [(out[0], sv(seg_keys)[order]), (out[1], idx[order])]
+
+    path(C_SEG, lambda: cub.DeviceSegmentedRadixSort.SortPairs(
+        seg_keys, idx, N_KEYS, N_SEGMENTS, offsets[:-1], offsets[1:]),
+        RADIX_OPERATOR, c3_oracle)
+    del keys, seg_keys, offsets
+
+    rec = {"score": torch.randint(0, 1000, (N_KEYS,), device="cuda",
+                                  generator=gen).to(torch.float32),
+           "id": torch.randint(0, 1 << 20, (N_KEYS,), device="cuda",
+                               generator=gen, dtype=torch.int32)}
+
+    def by_score(a, b):  # score descending, then id ascending
+        return (a["score"] > b["score"]) | ((a["score"] == b["score"])
+                                            & (a["id"] < b["id"]))
+
+    def c4_oracle(out):
+        o1 = torch.sort(rec["id"], stable=True).indices
+        o2 = torch.sort(rec["score"][o1], descending=True,
+                        stable=True).indices
+        order = o1[o2]
+        return [(out[0]["score"], rec["score"][order]),
+                (out[0]["id"], rec["id"][order]), (out[1], idx[order])]
+
+    path(C_MSORT, lambda: cub.DeviceMergeSort.StableSortPairs(
+        rec, idx, N_KEYS, by_score), (), c4_oracle, runs=2)
+    del rec, idx
+    torch.cuda.empty_cache()
+
+    keys = rand_bits(N_COMPAT, torch.uint32, gen)
+    pts = torch.randn(N_COMPAT, 3, device="cuda", generator=gen)
+
+    def c5_oracle(out):
+        order = torch.sort(u32_to_i64(keys), stable=True).indices
+        return [(out[0], sv(keys)[order]), (out[1], pts[order])]
+
+    path(C_TSORT, lambda: thrust.stable_sort_by_key(keys, pts), SORT_KERNELS,
+         c5_oracle)
+    del pts
+
+    x = torch.randint(0, 1 << 20, (N_COMPAT,), device="cuda", generator=gen,
+                      dtype=torch.int32)
+
+    def c6_oracle(out):
+        first = x % 3 == 0
+        second = ~first & (x < (1 << 19))
+        part = torch.where(first, 0, torch.where(second, 1, 2))
+        o = x[torch.sort(part, stable=True).indices]
+        n1, n2 = int(first.sum()), int(second.sum())
+        counts = torch.tensor([n1, n2], dtype=torch.int32, device="cuda")
+        return [(out[0], o), (out[1], torch.roll(o, -n1)),
+                (out[2], torch.roll(o, -(n1 + n2))), (out[3], counts)]
+
+    path(C_3WAY, lambda: cub.DevicePartition.ThreeWay(
+        x, lambda a: a % 3 == 0, lambda a: a < (1 << 19), N_COMPAT),
+        SORT_KERNELS, c6_oracle)
+
+    rk = sorted_runs(N_COMPAT, 1 << 22, gen)
+    rv = x
+    starts = segment_starts([rk])
+    ends = torch.cat([starts[1:], starts[:1]])  # a run ends where one starts
+    n_runs = torch.tensor(int(starts.sum()), dtype=torch.int32, device="cuda")
+    keep = by_flag_order(starts)
+    path(C_UBK, lambda: cub.DeviceSelect.UniqueByKey(rk, rv, N_COMPAT),
+         SORT_KERNELS, lambda out: [(out[0], rk[keep]), (out[1], rv[keep]),
+                                    (out[2], n_runs)])
+
+    def c8_oracle(out):
+        _, counts = torch.unique_consecutive(rk, return_counts=True)
+        lengths = torch.zeros(N_COMPAT, dtype=torch.int32, device="cuda")
+        lengths[:counts.numel()] = counts.to(torch.int32)
+        return [(out[0], rk[keep]), (out[1], lengths), (out[2], n_runs)]
+
+    path(C_RLE, lambda: cub.DeviceRunLengthEncode.Encode(rk, N_COMPAT),
+         SORT_KERNELS, c8_oracle)
+
+    def c9_oracle(out):
+        scanned = wrap_i32(seg_cumsum(rv.to(torch.int64), start_fill(starts)))
+        at_ends = by_flag_order(ends)
+        return [(out[0], rk[at_ends]), (out[1], scanned[at_ends]),
+                (out[2], n_runs)]
+
+    path(C_RBK, lambda: cub.DeviceReduce.ReduceByKey(rk, rv, None, N_COMPAT),
+         RADIX_OPERATOR, c9_oracle)
+    del rk, starts, ends, keep
+
+    xs = rand_bits(N_COMPAT, torch.int32, gen)
+
+    def c10_oracle(out):
+        init = torch.full((1,), -5, dtype=torch.int32, device="cuda")
+        inc = torch.cummax(xs, 0).values
+        return [(out, torch.cat([init, torch.maximum(init, inc[:-1])]))]
+
+    path(C_XSCAN, lambda: cub.DeviceScan.ExclusiveScan(xs, torch.maximum, -5,
+                                                       N_COMPAT), (),
+         c10_oracle)
+
+    soffs = ragged_offsets(N_COMPAT, N_COMPAT_SEGMENTS, gen)
+
+    def c11_oracle(out):
+        cs = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
+                        torch.cumsum(xs.to(torch.int64), 0)])
+        return [(out, wrap_i32(cs[soffs[1:].long()] - cs[soffs[:-1].long()]))]
+
+    path(C_SRED, lambda: cub.DeviceSegmentedReduce.Sum(
+        xs, N_COMPAT_SEGMENTS, soffs), SORT_KERNELS, c11_oracle)
+    del xs, soffs
+
+    px = torch.randint(0, 256, (N_COMPAT // 4, 4), device="cuda",
+                       generator=gen, dtype=torch.int32)
+    levels = [129, 65, 129, 33]
+
+    def c12_oracle(out):
+        return [(h, torch.bincount(px[:, c] // (256 // (lv - 1)),
+                                   minlength=lv - 1))
+                for c, (h, lv) in enumerate(zip(out, levels))]
+
+    path(C_MHIST, lambda: cub.DeviceHistogram.MultiHistogramEven(
+        px, levels, 0, 256, N_COMPAT // 4), ("digit_histograms",), c12_oracle)
+    del px
+
+    pay = torch.arange(N_COMPAT, dtype=torch.int32, device="cuda")
+
+    def c13_oracle(out):
+        o = torch.sort(u32_to_i64(keys), descending=True,
+                       stable=True).indices[:COMPAT_TOP_K]
+        return [(out[0], sv(keys)[o]), (out[1], pay[o])]
+
+    path(C_TOPK, lambda: cub.DeviceTopK.MaxPairs(keys, pay, COMPAT_TOP_K,
+                                                 N_COMPAT), RADIX_OPERATOR,
+         c13_oracle)
+    del pay, keys, x
+
+    s = sorted_u32(N_COMPAT, gen)
+    q = rand_bits(N_KEYS, torch.uint32, gen)
+    path(C_LB, lambda: thrust.lower_bound(s, q), (),
+         lambda out: [(out, torch.searchsorted(u32_to_i64(s), u32_to_i64(q))
+                       .to(torch.int32))])
+    del s, q
+    torch.cuda.empty_cache()
+    log(f"[compat] phase wall time {time.perf_counter() - t0:.1f} s")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# external: the out-of-core sorts and join (host arrays larger than a chunk)
+# ---------------------------------------------------------------------------
+
+N_EXT = 1 << 30          # BASELINE.json: "sorting 1B uint32"
+N_EXT_PAIRS = 1 << 28
+N_EXT_BUILD = 100_000_000  # BASELINE.json's join: 1B probe x 100M build
+N_EXT_MPROBE, N_EXT_MBUILD = 1 << 26, 1 << 22
+EXT_HOST_RAM = 48 << 30  # host RAM the 2^30 legs need, with room
+ODD = 2654435761         # odd: i * ODD mod 2^32 is a bijection
+
+
+def host_ram_bytes() -> tuple[int, int]:
+    """(MemTotal, MemAvailable) of the host, from /proc/meminfo."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":")
+            info[k] = int(v.split()[0]) * 1024
+    return info["MemTotal"], info["MemAvailable"]
+
+
+def peak_rss_gib() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def to_card(a) -> torch.Tensor:
+    """A host u32 (or int32) array on the card as int32 bits."""
+    import numpy as np
+
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).cuda()
+
+
+def unique_u32(n: int, offset: int) -> torch.Tensor:
+    """n distinct u32 keys on the card (a bijection of 0..n-1), int32 bits."""
+    i = torch.arange(n, dtype=torch.int64, device="cuda")
+    return wrap_i32((i * ODD + offset) & 0xFFFFFFFF)
+
+
+def log_split(name: str, wall: float, t: dict) -> None:
+    log(f"[external] {name}: {wall:.3f} s wall; host-to-card copies "
+        f"{t['h2d']:.3f} s, card {t['device']:.3f} s, card-to-host copies "
+        f"{t['d2h']:.3f} s, host merge {t['merge']:.3f} s; peak RSS "
+        f"{peak_rss_gib():.2f} GiB")
+
+
+def phase_external(gen: torch.Generator, launches: dict) -> dict:
+    """The out-of-core paths E1-E6, each counted and checked against a
+    plain-torch oracle on the card. Returns name -> {wall and the split}."""
+    import numpy as np
+
+    import cuda.radixsort_tpu_torch as rt
+    from cuda.radixsort_tpu_torch.ops import external
+    from cuda.radixsort_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    total, avail = host_ram_bytes()
+    n_ext = N_EXT if avail >= EXT_HOST_RAM else N_EXT // 2
+    log(f"[external] host RAM {total / 2**30:.1f} GiB ({avail / 2**30:.1f} "
+        f"GiB available), {os.cpu_count()} cores")
+    if n_ext != N_EXT:
+        log(f"[external] reduced: the 2^30 legs run at 2^29 (host RAM "
+            f"available {avail / 2**30:.1f} GiB < {EXT_HOST_RAM >> 30} GiB)")
+    lg = n_ext.bit_length() - 1
+    sign = -(1 << 31)
+    out: dict = {}
+
+    def leg(name, fn, needs):
+        t = {}
+        t0 = time.perf_counter()
+        res = run_counted(name, lambda: fn(t), needs, launches)
+        wall = time.perf_counter() - t0
+        log_split(name, wall, t)
+        out[name] = dict(t, wall=wall)
+        return res
+
+    # E1: sort_external of 2^30 u32 keys in 2^27-row chunks: 8 runs merged
+    e1 = f"E1 sort_external 2^{lg} u32, chunk 2^27"
+    keys = native.random_u32(n_ext, SEED)
+    got = leg(e1, lambda t: rt.sort_external(keys, chunk=1 << 27, timings=t),
+              SORT_KERNELS)
+    kd = to_card(keys)
+    want = torch.sort(kd ^ sign).values ^ sign
+    expect(torch.equal(to_card(got), want), f"{e1}: differs from torch.sort "
+           f"of the same keys on the card")
+    log(f"[external] {e1} == torch.sort on the card bit for bit")
+    del keys, got, kd, want
+    torch.cuda.empty_cache()
+
+    # E2: pairs, the payload the row index, so stability shows
+    e2 = "E2 sort_external_pairs 2^28 u32 + row index, chunk 2^26"
+    pk = native.random_u32(N_EXT_PAIRS, SEED + 1)
+    pv = np.arange(N_EXT_PAIRS, dtype=np.int32)
+    gk, gv = leg(e2, lambda t: rt.sort_external_pairs(pk, pv, chunk=1 << 26,
+                                                      timings=t),
+                 SORT_KERNELS)
+    order = torch.sort(u32_to_i64(to_card(pk).view(torch.uint32)),
+                       stable=True).indices
+    want_k = to_card(pk)[order]
+    expect(torch.equal(to_card(gk), want_k)
+           and torch.equal(to_card(gv), order.to(torch.int32)),
+           f"{e2}: differs from a stable torch.sort on the card")
+    log(f"[external] {e2} == stable torch.sort on the card bit for bit")
+    del order
+    torch.cuda.empty_cache()
+
+    # E3, E4: the disk-spill forms at 2^28 under build/, files removed
+    tdir = os.path.join(HERE, "build", "chip_smoke_external")
+    os.makedirs(tdir, exist_ok=True)
+    paths = [os.path.join(tdir, f) for f in ("k.u32", "v.u32", "ok.u32",
+                                             "ov.u32")]
+    try:
+        pk.tofile(paths[0])
+        pv.tofile(paths[1])
+        e3 = "E3 sort_external_file 2^28 u32, chunk 2^27"
+        n3 = leg(e3, lambda t: external.sort_external_file(
+            paths[0], paths[2], tmpdir=tdir, timings=t), SORT_KERNELS)
+        expect(n3 == N_EXT_PAIRS and np.array_equal(
+            np.fromfile(paths[2], np.uint32), gk), f"{e3}: differs from E2's "
+            f"checked keys")
+        e4 = "E4 sort_external_pairs_file 2^28 u32 + row index, chunk 2^26"
+        n4 = leg(e4, lambda t: external.sort_external_pairs_file(
+            *paths, tmpdir=tdir, timings=t), SORT_KERNELS)
+        expect(n4 == N_EXT_PAIRS
+               and np.array_equal(np.fromfile(paths[2], np.uint32), gk)
+               and np.array_equal(np.fromfile(paths[3], np.int32), gv),
+               f"{e4}: differs from E2's checked pairs")
+        left = sorted(set(os.listdir(tdir)) - {os.path.basename(p)
+                                               for p in paths})
+        expect(not left, f"run files left behind: {left}")
+        log(f"[external] {e3}, {e4} == E2's checked output bit for bit; no "
+            f"run file left")
+    finally:
+        for p in paths:
+            if os.path.exists(p):
+                os.remove(p)
+        os.rmdir(tdir)
+    del pk, pv, gk, gv, want_k
+
+    # E5: BASELINE.json's join shape, count and checksum only
+    e5 = f"E5 join_external 2^{lg} probe x 10^8 build, materialize=False"
+    bk = unique_u32(N_EXT_BUILD, 12345)
+    bv = rand_bits(N_EXT_BUILD, torch.int32, gen)
+    hit = bk[torch.randint(0, N_EXT_BUILD, (n_ext // 2,), device="cuda",
+                           generator=gen)]
+    probe = torch.cat([hit, rand_bits(n_ext - n_ext // 2, torch.int32, gen)])
+    probe = probe[torch.randperm(n_ext, device="cuda", generator=gen)]
+    host_probe = probe.cpu().numpy().view(np.uint32)
+    host_bk = bk.cpu().numpy().view(np.uint32)
+    host_bv = bv.cpu().numpy()
+    del probe, hit
+    torch.cuda.empty_cache()
+    count, checksum = leg(e5, lambda t: external.join_external(
+        host_bk, host_bv, host_probe, materialize=False, timings=t),
+        RADIX_OPERATOR)
+    bs = torch.sort(u32_to_i64(bk), stable=True)
+    want_count, want_sum = 0, 0
+    for lo in range(0, n_ext, 1 << 27):
+        p64 = u32_to_i64(to_card(host_probe[lo: lo + (1 << 27)])
+                         .view(torch.uint32))
+        pos = torch.searchsorted(bs.values, p64).clamp_max(N_EXT_BUILD - 1)
+        m = bs.values[pos] == p64
+        ksum = int(torch.where(m, p64, 0).sum()) & 0xFFFFFFFF
+        vsum = int(torch.where(m, bv[bs.indices[pos]].to(torch.int64),
+                               0).sum()) & 0xFFFFFFFF
+        want_count += int(m.sum())
+        want_sum ^= ksum ^ vsum
+    expect(count == want_count and int(checksum) == want_sum,
+           f"{e5}: (count, checksum) ({count}, {int(checksum)}) != the "
+           f"searchsorted oracle's ({want_count}, {want_sum})")
+    log(f"[external] {e5}: count {count} and checksum {int(checksum)} == the "
+        f"searchsorted oracle on the card")
+    del bk, bv, bs, host_probe, host_bk, host_bv
+    torch.cuda.empty_cache()
+
+    # E6: the materialized join, row for row
+    e6 = "E6 join_external 2^26 probe x 2^22 build, materialize=True"
+    bk = unique_u32(N_EXT_MBUILD, 777)
+    bv = rand_bits(N_EXT_MBUILD, torch.int32, gen)
+    hit = bk[torch.randint(0, N_EXT_MBUILD, (N_EXT_MPROBE // 2,),
+                           device="cuda", generator=gen)]
+    probe = torch.cat([hit, rand_bits(N_EXT_MPROBE // 2, torch.int32, gen)])
+    probe = probe[torch.randperm(N_EXT_MPROBE, device="cuda", generator=gen)]
+    chunk = 1 << 27  # the default: one slice
+    gk, gv, gi, gc = leg(e6, lambda t: external.join_external(
+        bk.cpu().numpy().view(np.uint32), bv.cpu().numpy(),
+        probe.cpu().numpy().view(np.uint32), chunk=chunk, timings=t),
+        RADIX_OPERATOR)
+    slices = [oracle_fk_join(bk.view(torch.uint32), bv,
+                             probe[lo: lo + chunk].view(torch.uint32))
+              for lo in range(0, N_EXT_MPROBE, chunk)]
+    wk, wv = (torch.cat([s[i] for s in slices]) for i in (0, 1))
+    wi = torch.cat([s[2] + lo for s, lo in zip(slices, range(
+        0, N_EXT_MPROBE, chunk))])
+    wc = sum(s[3] for s in slices)
+    expect(gc == wc and torch.equal(to_card(gk), wk)
+           and torch.equal(to_card(gv), wv) and torch.equal(to_card(gi), wi),
+           f"{e6}: differs from the torch.sort + searchsorted oracle")
+    log(f"[external] {e6}: {gc} rows == the oracle row for row")
+    del bk, bv, hit, probe, gk, gv, gi, wk, wv, wi, slices
+    torch.cuda.empty_cache()
+    log(f"[external] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_times(gen: torch.Generator) -> dict:
     import cuda.radixsort_tpu_torch as rt
     from cuda.radixsort_tpu_torch import twiddle
@@ -2161,6 +2637,8 @@ def main() -> int:
     phase_network(gen, launches)
     if profile_run:
         phase_profile(gen)
+    compat_ms = phase_compat(gen, launches)
+    external_s = phase_external(gen, launches)
     t = phase_times(gen)
     ab = phase_ab(gen, parent) if parent else None
 
@@ -2346,7 +2824,9 @@ def main() -> int:
                       "padded_network": t["split29_ms"]},
         "network_paths_ms": {name: {"bitonic": t[name][0], "radix": t[name][1],
                                     "oracle": t[name][2]}
-                             for name in NET_PATHS}}
+                             for name in NET_PATHS},
+        "compat_paths_ms": compat_ms,
+        "external_paths_s": external_s}
     if ab is not None:
         record["parent_ab"] = ab
     log(smi)

@@ -27,8 +27,14 @@ Public API (parity: CUB ``device_radix_sort.cuh``, ``device_scan.cuh``,
     digit_histogram, histogram_even,
     histogram_range                          — device-wide histograms
     window                                   — OVER (PARTITION BY p ORDER BY o)
+    comparator_sort, comparator_argsort      — sort by any comparator
+    sort_external, sort_external_pairs       — host arrays larger than the
+                                               card: chunk sorts + host merge
     Table, table, Query                      — column batches and query plans
     SortConfig, preset, resolve              — tuning policy
+
+CUB- and thrust-shaped surfaces: ``cub_compat`` (DeviceRadixSort and the
+rest of CUB's device-wide suite) and ``thrust_compat``.
 
 ``python -m cuda.radixsort_tpu_torch`` runs a one-command self-test.
 """
@@ -84,8 +90,16 @@ from cuda.radixsort_tpu_torch.ops.histogram import (  # noqa: F401
     histogram_range,
 )
 from cuda.radixsort_tpu_torch.ops.window import window  # noqa: F401
+from cuda.radixsort_tpu_torch.ops.comparator_sort import (  # noqa: F401
+    comparator_argsort,
+    comparator_sort,
+)
+from cuda.radixsort_tpu_torch.ops.external import (  # noqa: F401
+    sort_external,
+    sort_external_pairs,
+)
 from cuda.radixsort_tpu_torch.table import Table, table  # noqa: F401
 from cuda.radixsort_tpu_torch.pipeline.plan import Query  # noqa: F401
 from cuda.radixsort_tpu_torch import twiddle  # noqa: F401
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"

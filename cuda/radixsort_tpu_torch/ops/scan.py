@@ -35,6 +35,7 @@ def _full(shape, value, dtype, device) -> torch.Tensor:
     are written through the signed view of the same bits."""
     if dtype in twiddle.PARTIAL:
         width = twiddle.bit_width(dtype)
+        value = int(value)  # a numpy scalar would not wrap to the signed view
         if value >= 1 << (width - 1):
             value -= 1 << width
         return torch.full(shape, value, dtype=twiddle.signed_dtype(dtype),

@@ -30,9 +30,10 @@ _TO_NUMPY_VIA = {
 }
 
 
-def from_numpy(arr, device="cpu") -> torch.Tensor:
+def from_numpy(arr, device="cuda") -> torch.Tensor:
     """numpy array (any key or payload dtype, bfloat16 included) -> tensor
-    on ``device`` with the same bits. Always copies."""
+    on ``device`` (the card unless the caller asks for the CPU) with the
+    same bits. Always copies."""
     a = np.ascontiguousarray(np.asarray(arr))
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -63,7 +64,7 @@ def table_from_numpy(columns: dict, device):
     return Table({k: from_numpy(v, device) for k, v in columns.items()})
 
 
-def tree_from_numpy(tree, device="cpu"):
+def tree_from_numpy(tree, device="cuda"):
     """Apply :func:`from_numpy` to every leaf of a tensor/list/tuple/dict."""
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}

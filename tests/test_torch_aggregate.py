@@ -64,11 +64,11 @@ def test_groupby_matches_jax(agg, masked):
     keys, ints, floats = _data(rng)
     valid = rng.random(N) < 0.7 if masked else None
     jv = None if valid is None else jnp.asarray(valid)
-    tv = None if valid is None else from_numpy(valid)
+    tv = None if valid is None else from_numpy(valid, device="cpu")
     # int32 values (sums wrap) for the exact aggregates, f32 for the moments
     vals = ints if agg in ("sum", "count", "min", "max") else floats
     want = rs.groupby(jnp.asarray(keys), jnp.asarray(vals), agg=agg, valid=jv)
-    got = rt.groupby(from_numpy(keys), from_numpy(vals), agg=agg, valid=tv)
+    got = rt.groupby(from_numpy(keys, device="cpu"), from_numpy(vals, device="cpu"), agg=agg, valid=tv)
     assert_close(got[0], want[0], exact=True)
     assert_close(got[1], want[1], exact=agg in ("count", "min", "max"),
                  atol=moment_atol(agg, vals))
@@ -82,12 +82,12 @@ def test_groupby_float_min_max_and_unsigned_sums():
     floats[:3] = [np.nan, -np.inf, np.inf]
     for agg in ("min", "max"):
         want = rs.groupby(jnp.asarray(keys), jnp.asarray(floats), agg=agg)
-        got = rt.groupby(from_numpy(keys), from_numpy(floats), agg=agg)
+        got = rt.groupby(from_numpy(keys, device="cpu"), from_numpy(floats, device="cpu"), agg=agg)
         for g, w in zip(got, want):
             assert_close(g, w, exact=True)
     u = ints.view(np.uint32)
     want = rs.groupby(jnp.asarray(keys), jnp.asarray(u), agg="sum")
-    got = rt.groupby(from_numpy(keys), from_numpy(u), agg="sum")
+    got = rt.groupby(from_numpy(keys, device="cpu"), from_numpy(u, device="cpu"), agg="sum")
     for g, w in zip(got, want):
         assert_close(g, w, exact=True)
 
@@ -103,9 +103,9 @@ def test_groupby_multi_matches_jax(masked):
     want = rs.groupby_multi((jnp.asarray(k1), jnp.asarray(k2)),
                             tuple(jnp.asarray(v) for v in vcols), aggs,
                             valid=None if valid is None else jnp.asarray(valid))
-    got = rt.groupby_multi((from_numpy(k1), from_numpy(k2)),
-                           tuple(from_numpy(v) for v in vcols), aggs,
-                           valid=None if valid is None else from_numpy(valid))
+    got = rt.groupby_multi((from_numpy(k1, device="cpu"), from_numpy(k2, device="cpu")),
+                           tuple(from_numpy(v, device="cpu") for v in vcols), aggs,
+                           valid=None if valid is None else from_numpy(valid, device="cpu"))
     for g, w in zip(got[0], want[0]):
         assert_close(g, w, exact=True)
     for g, w, a, v in zip(got[1], want[1], aggs, vcols):
@@ -121,13 +121,13 @@ def test_groupby_quantile_matches_jax():
     valid = rng.random(N) < 0.8
     qs = (0.0, 0.25, 0.5, 0.9, 1.0)
     for k_j, k_t, vals in [
-            (jnp.asarray(keys), from_numpy(keys), floats),
+            (jnp.asarray(keys), from_numpy(keys, device="cpu"), floats),
             ((jnp.asarray(keys), jnp.asarray(keys2)),
-             (from_numpy(keys), from_numpy(keys2)), ints)]:
+             (from_numpy(keys, device="cpu"), from_numpy(keys2, device="cpu")), ints)]:
         want = rs.groupby_quantile(k_j, jnp.asarray(vals), qs,
                                    valid=jnp.asarray(valid))
-        got = rt.groupby_quantile(k_t, from_numpy(vals), qs,
-                                  valid=from_numpy(valid))
+        got = rt.groupby_quantile(k_t, from_numpy(vals, device="cpu"), qs,
+                                  valid=from_numpy(valid, device="cpu"))
         gk, wk = ((got[0], want[0]) if isinstance(got[0], tuple)
                   else ((got[0],), (want[0],)))
         for g, w in zip(gk, wk):
@@ -137,7 +137,7 @@ def test_groupby_quantile_matches_jax():
             assert_close(g, w, exact=False)
         assert_close(got[2], want[2], exact=True)
     with pytest.raises(ValueError):
-        rt.groupby_quantile(from_numpy(keys), from_numpy(floats), 1.5)
+        rt.groupby_quantile(from_numpy(keys, device="cpu"), from_numpy(floats, device="cpu"), 1.5)
 
 
 HALF = {"float16": np.float16, "bfloat16": ml_dtypes.bfloat16}
@@ -192,9 +192,9 @@ def test_groupby_half_moments_within_derived_bound(dtype, masked, agg):
                                 + 3 * masked + 6 * (dtype == "bfloat16"))
     keys, vals, valid = _half_data(rng, HALF[dtype], masked)
     jv = jnp.asarray(valid) if masked else None
-    tv = from_numpy(valid) if masked else None
+    tv = from_numpy(valid, device="cpu") if masked else None
     want = rs.groupby(jnp.asarray(keys), jnp.asarray(vals), agg=agg, valid=jv)
-    got = rt.groupby(from_numpy(keys), from_numpy(vals), agg=agg, valid=tv)
+    got = rt.groupby(from_numpy(keys, device="cpu"), from_numpy(vals, device="cpu"), agg=agg, valid=tv)
     assert_close(got[0], want[0], exact=True)
     assert_close(got[2], want[2], exact=True)
     c = int(want[2])
@@ -231,10 +231,10 @@ def test_groupby_half_quantiles_within_one_ulp(dtype, masked):
     keys, vals, valid = _half_data(rng, HALF[dtype], masked)
     qs = (0.1, 0.25, 0.5, 0.9)
     jv = jnp.asarray(valid) if masked else None
-    tv = from_numpy(valid) if masked else None
+    tv = from_numpy(valid, device="cpu") if masked else None
     want = rs.groupby_quantile(jnp.asarray(keys), jnp.asarray(vals), qs,
                                valid=jv)
-    got = rt.groupby_quantile(from_numpy(keys), from_numpy(vals), qs,
+    got = rt.groupby_quantile(from_numpy(keys, device="cpu"), from_numpy(vals, device="cpu"), qs,
                               valid=tv)
     assert_close(got[0], want[0], exact=True)
     assert_close(got[2], want[2], exact=True)

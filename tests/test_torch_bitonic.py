@@ -59,14 +59,14 @@ def test_sort_planes_matches_jax(n_planes, n_cmp, case, compact):
     want = jb.sort_planes_bitonic(
         [jnp.asarray(p) for p in planes], n_cmp=n_cmp, log_tile=LOG_TILE,
         log_merge=LOG_MERGE, compact=compact, interpret=True)
-    mine = [from_numpy(p) for p in planes]
+    mine = [from_numpy(p, device="cpu") for p in planes]
     got = tb.sort_planes_bitonic(mine, n_cmp=n_cmp, log_tile=LOG_TILE)
     _assert_planes(got, want)
     assert all(g is m for g, m in zip(got, mine))  # in place
     if n_cmp < 0 and case == "ties":
         # the tile direction is part of the network: another log_tile
         # lands tied rows elsewhere
-        other = tb.sort_planes_bitonic([from_numpy(p) for p in planes],
+        other = tb.sort_planes_bitonic([from_numpy(p, device="cpu") for p in planes],
                                        n_cmp=n_cmp, log_tile=LOGN)
         assert not all(np.array_equal(to_numpy(o), np.asarray(w))
                        for o, w in zip(other, want))
@@ -81,14 +81,14 @@ def test_merge_planes_matches_jax(n_planes, n_cmp, case, log_block, compact):
     want = jb.merge_sorted_planes_bitonic(
         [jnp.asarray(p) for p in planes], log_block=log_block, n_cmp=n_cmp,
         log_merge=LOG_MERGE, compact=compact, interpret=True)
-    got = tb.merge_sorted_planes_bitonic([from_numpy(p) for p in planes],
+    got = tb.merge_sorted_planes_bitonic([from_numpy(p, device="cpu") for p in planes],
                                          log_block=log_block, n_cmp=n_cmp)
     _assert_planes(got, want)
 
 
 def test_sort_bits_sorts():
     x = _planes(1, 1, "random", seed=5, logn=12)[0]
-    got = tb.sort_bits_bitonic(from_numpy(x))
+    got = tb.sort_bits_bitonic(from_numpy(x, device="cpu"))
     np.testing.assert_array_equal(to_numpy(got), np.sort(x))
 
 
@@ -129,7 +129,7 @@ def test_planned_passes_give_the_plain_network(n_planes, n_cmp):
     # geometry small enough that every pass kind runs at 2^10 rows
     geo = dict(log_t=(4, 3, 3, 2)[n_planes - 1],
                c_max=(3, 2, 2, 1)[n_planes - 1])
-    planes = [from_numpy(p) for p in _planes(n_planes, n_cmp, "ties",
+    planes = [from_numpy(p, device="cpu") for p in _planes(n_planes, n_cmp, "ties",
                                              seed=n_planes, logn=10)]
     lt = 7  # the network's tile: levels below it fold in bit 7
     want = tb.sort_planes_bitonic_plain([p.clone() for p in planes],
@@ -256,7 +256,7 @@ def test_tile_phases_run_the_plain_network(n_planes, n_cmp, log_t):
                      {"register", "shuffle"} if log_t <= big else
                      {"register", "shuffle", "shared"})
 
-    planes = [from_numpy(p) for p in _planes(n_planes, n_cmp, "ties",
+    planes = [from_numpy(p, device="cpu") for p in _planes(n_planes, n_cmp, "ties",
                                              seed=log_t + n_planes,
                                              logn=logn)]
     want = tb.sort_planes_bitonic_plain([p.clone() for p in planes],

@@ -26,7 +26,7 @@ def test_selection_vector_matches_jax(density):
     rng = np.random.default_rng(int(density * 10))
     mask = rng.random(N) < density
     jsel, jcount = rs.selection_vector(jnp.asarray(mask))
-    tsel, tcount = rt.selection_vector(from_numpy(mask))
+    tsel, tcount = rt.selection_vector(from_numpy(mask, device="cpu"))
     assert tsel.dtype == torch.int32 and tcount.dtype == torch.int32
     assert tcount.dim() == 0 and int(tcount) == int(jcount)
     np.testing.assert_array_equal(to_numpy(tsel), np.asarray(jsel))
@@ -44,7 +44,7 @@ def test_filter_columns_matches_jax():
                             "f32": jnp.asarray(cols["f32"]),
                             "pair": tuple(jnp.asarray(c)
                                           for c in cols["pair"])})
-    tout, tcount = rt.filter_columns(from_numpy(mask), tree_from_numpy(cols))
+    tout, tcount = rt.filter_columns(from_numpy(mask, device="cpu"), tree_from_numpy(cols, device="cpu"))
     assert int(tcount) == int(jcount) == mask.sum()
     for g, w in [(tout["u64"], jout["u64"]), (tout["f32"], jout["f32"]),
                  (tout["pair"][0], jout["pair"][0]),
@@ -54,7 +54,7 @@ def test_filter_columns_matches_jax():
     # a single tensor column, and a uint8 mask
     u = cols["u64"].astype(np.uint32)
     jo, _ = rs.filter_columns(jnp.asarray(mask), jnp.asarray(u))
-    to, tc = rt.filter_columns(from_numpy(mask).to(torch.uint8), from_numpy(u))
+    to, tc = rt.filter_columns(from_numpy(mask, device="cpu").to(torch.uint8), from_numpy(u, device="cpu"))
     np.testing.assert_array_equal(to_numpy(to), np.asarray(jo))
     assert int(tc) == mask.sum()
 
@@ -85,5 +85,5 @@ def test_compaction_takes_one_two_bit_pass():
 def test_empty_and_tiny():
     for n in (0, 1):
         mask = np.ones(n, bool)
-        sel, count = rt.selection_vector(from_numpy(mask))
+        sel, count = rt.selection_vector(from_numpy(mask, device="cpu"))
         assert sel.shape == (n,) and int(count) == n

@@ -33,12 +33,12 @@ def test_histogram_matches_jax_interpret(case, width, n_stages):
         jnp.asarray(keys).reshape(-1, 128), n_stages=n_stages, width=width,
         interpret=True))
     got = to_numpy(thist.digit_histograms_plain(
-        from_numpy(keys), n_stages=n_stages, width=width))
+        from_numpy(keys, device="cpu"), n_stages=n_stages, width=width))
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
     # on a CPU tensor the wrapper is the plain version
     np.testing.assert_array_equal(
-        to_numpy(thist.digit_histograms(from_numpy(keys), n_stages=n_stages,
+        to_numpy(thist.digit_histograms(from_numpy(keys, device="cpu"), n_stages=n_stages,
                                         width=width)), want)
     np.testing.assert_array_equal(
         to_numpy(thist.stage_bases(torch.from_numpy(want.copy()))),
@@ -50,7 +50,7 @@ def test_histogram_width8_vs_numpy(n):
     # the JAX kernel holds at most 128 bins, so width 8 is held to numpy
     rng = np.random.default_rng(n)
     keys = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
-    got = to_numpy(thist.digit_histograms(from_numpy(keys), n_stages=4,
+    got = to_numpy(thist.digit_histograms(from_numpy(keys, device="cpu"), n_stages=4,
                                           width=8))
     for s in range(4):
         want = np.bincount((keys >> np.uint32(8 * s)) & np.uint32(255),
@@ -99,7 +99,7 @@ def test_limb_histograms_match_jax_interpret(width, limb_bits):
             jnp.asarray(key).reshape(-1, 128), n_stages=-(-end // width),
             width=width, interpret=True)))
     want = np.concatenate(want)
-    tlimbs = [from_numpy(x) for x in limbs]
+    tlimbs = [from_numpy(x, device="cpu") for x in limbs]
     got = to_numpy(thist.limb_histograms_plain(tlimbs, limb_bits, width))
     np.testing.assert_array_equal(got, want)
     # on CPU tensors the entry point is the plain version
@@ -114,7 +114,7 @@ def test_limb_histograms_of_views(n, offset):
     rng = np.random.default_rng([n, offset])
     full = rng.integers(0, 2**32, size=(2, n + offset),
                         dtype=np.uint64).astype(np.uint32)
-    limbs = [from_numpy(row)[offset:] for row in full]
+    limbs = [from_numpy(row, device="cpu")[offset:] for row in full]
     got = to_numpy(thist.limb_histograms(limbs, [(0, 32), (4, 30)], 8))
     hi, lo = full[0, offset:], full[1, offset:] & np.uint32(0x3FFFFFF0)
     for s in range(4):
@@ -127,7 +127,7 @@ def test_limb_histograms_of_views(n, offset):
 def test_limb_stages_and_empty_ranges():
     assert thist.limb_stages([(0, 32), (3, 13), (8, 8), (0, 30)], 4) == [
         (0xFFFFFFFF, 8), (0x1FF8, 4), (0, 0), (0x3FFFFFFF, 8)]
-    keys = from_numpy(np.arange(10, dtype=np.uint32))
+    keys = from_numpy(np.arange(10, dtype=np.uint32), device="cpu")
     out = thist.limb_histograms([keys], [(5, 5)], 8)
     assert out.shape == (0, 256) and out.dtype == torch.int32
     with pytest.raises(ValueError):
@@ -161,5 +161,5 @@ def test_stage_histograms_are_sums_of_byte_histograms(width, n_stages):
                                  for hi in range(256 >> (lo + width))
                                  for v in range(1 << lo))
     want = to_numpy(thist.digit_histograms_plain(
-        from_numpy(keys), n_stages=n_stages, width=width))
+        from_numpy(keys, device="cpu"), n_stages=n_stages, width=width))
     np.testing.assert_array_equal(got, want)

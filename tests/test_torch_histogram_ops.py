@@ -41,7 +41,7 @@ def _keys(rng, dtype, n=N):
 def test_digit_histogram_matches_jax(dtype):
     rng = np.random.default_rng(np.dtype(dtype).itemsize)
     k = _keys(rng, dtype)
-    jk, tk = jnp.asarray(k), from_numpy(k)
+    jk, tk = jnp.asarray(k), from_numpy(k, device="cpu")
     width = np.dtype(dtype).itemsize * 8
     for bits in (1, 2, 3, 4, 5, 8):
         for begin in sorted({0, min(3, width - bits), width - bits}):
@@ -66,7 +66,7 @@ def test_histogram_even_matches_jax(num_bins, dtype):
     if np.dtype(dtype).kind == "f":
         s[:5] = [np.nan, np.inf, -np.inf, -25.0, 25.0]
     for lo, hi in ((-25, 25), (-3.3, 70.1), (0, 1)):
-        got = rt.histogram_even(from_numpy(s), num_bins, lo, hi)
+        got = rt.histogram_even(from_numpy(s, device="cpu"), num_bins, lo, hi)
         assert_same(got, rs.histogram_even(jnp.asarray(s), num_bins, lo, hi))
 
 
@@ -79,7 +79,7 @@ def test_histogram_range_matches_jax(levels):
     rng = np.random.default_rng(len(levels))
     s = (rng.standard_normal(N) * 40).astype(np.float32)
     s[:3] = [np.nan, levels[0], levels[-1]]
-    got = rt.histogram_range(from_numpy(s), from_numpy(levels))
+    got = rt.histogram_range(from_numpy(s, device="cpu"), from_numpy(levels, device="cpu"))
     assert_same(got, rs.histogram_range(jnp.asarray(s),
                                         jnp.asarray(levels)))
 

@@ -53,7 +53,7 @@ def test_join_matches_jax(how):
                                  "full"].index(how))
     bk, bv, pk = _tables(rng)
     want = rs.join(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk), how=how)
-    got = rt.join(from_numpy(bk), from_numpy(bv), from_numpy(pk), how=how)
+    got = rt.join(from_numpy(bk, device="cpu"), from_numpy(bv, device="cpu"), from_numpy(pk, device="cpu"), how=how)
     assert_outputs_equal(got, want)
 
 
@@ -69,9 +69,9 @@ def test_composite_keys_and_validity(how):
     want = rs.join((jnp.asarray(bk), jnp.asarray(bk2)), jnp.asarray(bv),
                    (jnp.asarray(pk), jnp.asarray(pk2)), how=how,
                    build_valid=jnp.asarray(bval), probe_valid=jnp.asarray(pval))
-    got = rt.join((from_numpy(bk), from_numpy(bk2)), from_numpy(bv),
-                  (from_numpy(pk), from_numpy(pk2)), how=how,
-                  build_valid=from_numpy(bval), probe_valid=from_numpy(pval))
+    got = rt.join((from_numpy(bk, device="cpu"), from_numpy(bk2, device="cpu")), from_numpy(bv, device="cpu"),
+                  (from_numpy(pk, device="cpu"), from_numpy(pk2, device="cpu")), how=how,
+                  build_valid=from_numpy(bval, device="cpu"), probe_valid=from_numpy(pval, device="cpu"))
     assert isinstance(got[0], tuple)
     assert_outputs_equal(got, want)
 
@@ -84,8 +84,8 @@ def test_float_keys_left_join():
     want = rs.join(jnp.asarray(bk), jnp.asarray(bv.astype(np.float32)),
                    jnp.asarray(pk), how="left",
                    probe_valid=jnp.asarray(pk != 7))
-    got = rt.join(from_numpy(bk), from_numpy(bv.astype(np.float32)),
-                  from_numpy(pk), how="left", probe_valid=from_numpy(pk != 7))
+    got = rt.join(from_numpy(bk, device="cpu"), from_numpy(bv.astype(np.float32), device="cpu"),
+                  from_numpy(pk, device="cpu"), how="left", probe_valid=from_numpy(pk != 7, device="cpu"))
     assert_outputs_equal(got, want)
 
 
@@ -94,12 +94,12 @@ def test_join_count_and_expand(how, capacity):
     rng = np.random.default_rng(17)
     bk, bv, pk = _tables(rng)
     want_count = jjoin_count(jnp.asarray(bk), jnp.asarray(pk))
-    got_count = rt.join_count(from_numpy(bk), from_numpy(pk))
+    got_count = rt.join_count(from_numpy(bk, device="cpu"), from_numpy(pk, device="cpu"))
     assert_outputs_equal((got_count,), (want_count,))
     capacity = capacity or int(want_count)  # a truncating one for "left"
     want = jjoin_expand(jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
                         capacity=capacity, how=how)
-    got = rt.join_expand(from_numpy(bk), from_numpy(bv), from_numpy(pk),
+    got = rt.join_expand(from_numpy(bk, device="cpu"), from_numpy(bv, device="cpu"), from_numpy(pk, device="cpu"),
                          capacity=capacity, how=how)
     assert_outputs_equal(got, want)
 

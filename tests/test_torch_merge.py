@@ -48,7 +48,7 @@ def test_merge_sorted_matches_jax(engine, dtype, descending, na, nb):
     b = _sorted(make_keys(dtype, n=nb, seed=nb, distinct=50), descending)
     want = _j_merge(jcfg)(jnp.asarray(a), jnp.asarray(b),
                           descending=descending, config=jcfg)
-    got = rt.merge_sorted(from_numpy(a), from_numpy(b),
+    got = rt.merge_sorted(from_numpy(a, device="cpu"), from_numpy(b, device="cpu"),
                           descending=descending, config=tcfg)
     _eq(got, np.asarray(want))
 
@@ -82,8 +82,8 @@ def test_merge_sorted_pairs_matches_jax(engine, key_dtype, values,
     jk, jv = _j_merge_pairs(jcfg)(jnp.asarray(ka), to_j(va), jnp.asarray(kb),
                                   to_j(vb), descending=descending,
                                   config=jcfg)
-    tk, tv = rt.merge_sorted_pairs(from_numpy(ka), tree_from_numpy(va),
-                                   from_numpy(kb), tree_from_numpy(vb),
+    tk, tv = rt.merge_sorted_pairs(from_numpy(ka, device="cpu"), tree_from_numpy(va, device="cpu"),
+                                   from_numpy(kb, device="cpu"), tree_from_numpy(vb, device="cpu"),
                                    descending=descending, config=tcfg)
     _eq(tk, np.asarray(jk))
     if values == "tuple":
@@ -99,8 +99,8 @@ def test_merge_routes_follow_the_engine(monkeypatch):
     orig = tb.merge_sorted_planes_bitonic
     monkeypatch.setattr(tb, "merge_sorted_planes_bitonic",
                         lambda *a, **k: calls.append(1) or orig(*a, **k))
-    a = from_numpy(np.arange(5, dtype=np.uint32))
-    b = from_numpy(np.arange(3, dtype=np.uint32))
+    a = from_numpy(np.arange(5, dtype=np.uint32), device="cpu")
+    b = from_numpy(np.arange(3, dtype=np.uint32), device="cpu")
     rt.merge_sorted(a, b)
     rt.merge_sorted_pairs(a, a, b, b, config=rt.SortConfig(engine="radix"))
     assert calls == []
@@ -110,15 +110,15 @@ def test_merge_routes_follow_the_engine(monkeypatch):
 
 
 def test_merge_edge_cases():
-    a = from_numpy(np.array([1, 5, 9], dtype=np.int32))
-    e = from_numpy(np.array([], dtype=np.int32))
+    a = from_numpy(np.array([1, 5, 9], dtype=np.int32), device="cpu")
+    e = from_numpy(np.array([], dtype=np.int32), device="cpu")
     for cfg in (TB, None):
         _eq(rt.merge_sorted(a, e, config=cfg), np.array([1, 5, 9], np.int32))
         k, v = rt.merge_sorted_pairs(e, {"x": e}, a, {"x": a}, config=cfg)
         _eq(k, np.array([1, 5, 9], np.int32))
         _eq(v["x"], np.array([1, 5, 9], np.int32))
     with pytest.raises(TypeError):
-        rt.merge_sorted(a, from_numpy(np.array([1], dtype=np.int64)))
+        rt.merge_sorted(a, from_numpy(np.array([1], dtype=np.int64), device="cpu"))
     with pytest.raises(TypeError):
         rt.merge_sorted_pairs(a, a, a, (a,))
 
@@ -143,7 +143,7 @@ def test_set_ops_match_jax(op, engine):
         a, b = _sorted(a, descending), _sorted(b, descending)
         jo, jc = getattr(rs, op)(jnp.asarray(a), jnp.asarray(b),
                                  descending=descending)
-        to, tc = getattr(rt, op)(from_numpy(a), from_numpy(b),
+        to, tc = getattr(rt, op)(from_numpy(a, device="cpu"), from_numpy(b, device="cpu"),
                                  descending=descending, config=tcfg)
         c = int(jc)
         assert int(tc) == c and tc.dim() == 0

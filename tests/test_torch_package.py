@@ -37,6 +37,11 @@ def test_imports_with_jax_blocked():
             "cuda.radixsort_tpu_torch.table, "
             "cuda.radixsort_tpu_torch.pipeline.query, "
             "cuda.radixsort_tpu_torch.pipeline.plan, "
+            "cuda.radixsort_tpu_torch.cub_compat, "
+            "cuda.radixsort_tpu_torch.thrust_compat, "
+            "cuda.radixsort_tpu_torch.ops.comparator_sort, "
+            "cuda.radixsort_tpu_torch.ops.external, "
+            "cuda.radixsort_tpu_torch.utils.native, "
             "cuda.radixsort_tpu_torch.__main__; "
             "import torch; "
             "net = rt.SortConfig(engine='bitonic'); "
@@ -129,5 +134,7 @@ def test_version_and_surface():
                  "Table", "table", "Query", "partition", "bucket_ids",
                  "hash32", "kth_value", "top_k", "window", "unique",
                  "run_length_encode", "non_trivial_runs", "distinct",
-                 "digit_histogram", "histogram_even", "histogram_range"):
+                 "digit_histogram", "histogram_even", "histogram_range",
+                 "comparator_sort", "comparator_argsort", "sort_external",
+                 "sort_external_pairs"):
         assert hasattr(rt, name)

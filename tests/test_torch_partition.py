@@ -59,7 +59,7 @@ DTYPES = [np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32,
 def test_hash32_and_bucket_ids_match_jax(dtype):
     rng = np.random.default_rng(DTYPES.index(dtype))
     k = _keys(rng, dtype)
-    jk, tk = jnp.asarray(k), from_numpy(k)
+    jk, tk = jnp.asarray(k), from_numpy(k, device="cpu")
     assert_same(rt.hash32(tk), rs.hash32(jk))
     width = np.dtype(dtype).itemsize * 8
     for bits in sorted({1, 5, min(8, width), min(32, width)}):
@@ -71,7 +71,7 @@ def test_hash32_and_bucket_ids_match_jax(dtype):
 def test_hash32_of_bfloat16_converts_its_value():
     k = np.array([-3.5, 0.0, 1.0, 300.0, 7e9, np.nan],
                  dtype=ml_dtypes.bfloat16)
-    assert_same(rt.hash32(from_numpy(k)), rs.hash32(jnp.asarray(k)))
+    assert_same(rt.hash32(from_numpy(k, device="cpu")), rs.hash32(jnp.asarray(k)))
 
 
 def _payload(rng, shape):
@@ -108,7 +108,8 @@ def test_partition_matches_jax(bits, by_hash, dtype, payload):
     vals = _payload(rng, payload)
     want = rs.partition(jnp.asarray(k), _to(vals, jnp.asarray), bits=bits,
                         by_hash=by_hash)
-    got = rt.partition(from_numpy(k), _to(vals, from_numpy), bits=bits,
+    got = rt.partition(from_numpy(k, device="cpu"),
+                       _to(vals, lambda v: from_numpy(v, device="cpu")), bits=bits,
                        by_hash=by_hash)
     assert_same(got[0], want[0])
     if vals is None:
@@ -122,7 +123,7 @@ def test_partition_matches_jax(bits, by_hash, dtype, payload):
 
 
 def test_bucket_ids_rejects_bits_out_of_range():
-    k = from_numpy(np.arange(8, dtype=np.uint8))
+    k = from_numpy(np.arange(8, dtype=np.uint8), device="cpu")
     with pytest.raises(ValueError, match="bits"):
         rt.bucket_ids(k, bits=9)
     with pytest.raises(ValueError, match="bits"):

@@ -68,7 +68,7 @@ def test_plain_matches_pallas_interpret(op, dtype):
     flags[4096] = True  # a head exactly at the port's tile boundary
     want = segmented_scan_pallas(jnp.asarray(v), jnp.asarray(flags), op,
                                  interpret=True)
-    got = kscan.segmented_scan_plain(from_numpy(v), from_numpy(flags), op)
+    got = kscan.segmented_scan_plain(from_numpy(v, device="cpu"), from_numpy(flags, device="cpu"), op)
     assert_scan_equal(to_numpy(got), want, v, flags, op)
 
 
@@ -79,12 +79,12 @@ def test_plain_edge_cases(case):
     flags = {"one_segment": np.zeros(N, bool),
              "every_row": np.ones(N, bool),
              "uint8_flags": rng.random(N) < 0.1}[case]
-    tf = from_numpy(flags)
+    tf = from_numpy(flags, device="cpu")
     if case == "uint8_flags":
         tf = tf.to(torch.uint8) * 7  # any non-zero byte is a head
     for op in ("sum", "max"):
         want = jscan.segmented_scan(jnp.asarray(v), jnp.asarray(flags), op)
-        got = kscan.segmented_scan_plain(from_numpy(v), tf, op)
+        got = kscan.segmented_scan_plain(from_numpy(v, device="cpu"), tf, op)
         np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
 
 
@@ -133,7 +133,7 @@ def test_segmented_scan_matches_jax(dtype, op, exclusive, init):
     flags = rng.random(N) < 0.05
     want = jscan.segmented_scan(jnp.asarray(v), jnp.asarray(flags), op,
                                 exclusive=exclusive, init=init)
-    got = rt.segmented_scan(from_numpy(v), from_numpy(flags), op,
+    got = rt.segmented_scan(from_numpy(v, device="cpu"), from_numpy(flags, device="cpu"), op,
                             exclusive=exclusive, init=init)
     assert_scan_equal(to_numpy(got), want, v, flags, op)
 
@@ -152,18 +152,18 @@ def test_callable_op_and_scan_by_key():
 
     want = jscan.scan_by_key((jnp.asarray(k1), jnp.asarray(k2)),
                              jnp.asarray(v), jop, identity=0, exclusive=True)
-    got = rt.scan_by_key((from_numpy(k1), from_numpy(k2)), from_numpy(v),
+    got = rt.scan_by_key((from_numpy(k1, device="cpu"), from_numpy(k2, device="cpu")), from_numpy(v, device="cpu"),
                          top, identity=0, exclusive=True)
     np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
     # a custom equality: keys equal when they share their low bit
     want = jscan.scan_by_key(jnp.asarray(k1), jnp.asarray(v), "max",
                              equality_op=lambda a, b: (a & 1) == (b & 1))
-    got = rt.scan_by_key(from_numpy(k1), from_numpy(v), "max",
+    got = rt.scan_by_key(from_numpy(k1, device="cpu"), from_numpy(v, device="cpu"), "max",
                          equality_op=lambda a, b: (a.view(torch.int32) & 1)
                          == (b.view(torch.int32) & 1))
     np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
     with pytest.raises(ValueError, match="identity"):
-        rt.segmented_scan(from_numpy(v), from_numpy(v > 0), top,
+        rt.segmented_scan(from_numpy(v, device="cpu"), from_numpy(v > 0, device="cpu"), top,
                           exclusive=True)
 
 
@@ -173,22 +173,22 @@ def test_plain_scan_and_reduce_with():
     for op in ("sum", "min", "max"):
         want = jscan.plain_scan_fast(jnp.asarray(v), op)
         np.testing.assert_array_equal(
-            to_numpy(tscan.plain_scan_fast(from_numpy(v), op)),
+            to_numpy(tscan.plain_scan_fast(from_numpy(v, device="cpu"), op)),
             np.asarray(want))
     v64 = v.astype(np.int64)
     np.testing.assert_array_equal(
-        to_numpy(tscan.plain_scan_fast(from_numpy(v64), "max")),
+        to_numpy(tscan.plain_scan_fast(from_numpy(v64, device="cpu"), "max")),
         np.asarray(jscan.plain_scan_fast(jnp.asarray(v64), "max")))
     want = jscan.plain_scan(jnp.asarray(v), "sum", exclusive=True, init=7)
-    got = tscan.plain_scan(from_numpy(v), "sum", exclusive=True, init=7)
+    got = tscan.plain_scan(from_numpy(v, device="cpu"), "sum", exclusive=True, init=7)
     np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
     for op, init in (("sum", None), ("max", 5000), ("min", None)):
         want = jscan.reduce_with(jnp.asarray(v), op, init)
-        got = tscan.reduce_with(from_numpy(v), op, init)
+        got = tscan.reduce_with(from_numpy(v, device="cpu"), op, init)
         assert got.dim() == 0 and int(got) == int(want)
     u = rng.integers(0, 2**32, size=N, dtype=np.uint64).astype(np.uint32)
     want = jscan.reduce_with(jnp.asarray(u), "max")
-    assert int(to_numpy(tscan.reduce_with(from_numpy(u), "max"))) == int(want)
+    assert int(to_numpy(tscan.reduce_with(from_numpy(u, device="cpu"), "max"))) == int(want)
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.float32],
@@ -198,7 +198,7 @@ def test_null_flags_is_all_zero_flags(op, dtype):
     # head_flags=None: the kernel reads no flags; the plain path scans as
     # with all-zero flags (row 0 a head), and so does the entry point here
     rng = np.random.default_rng([len(op), np.dtype(dtype).num, 7])
-    v = from_numpy(_values(dtype, rng, nan=(op != "sum")))
+    v = from_numpy(_values(dtype, rng, nan=(op != "sum")), device="cpu")
     want = kscan.segmented_scan_plain(v, torch.zeros(N, dtype=torch.bool), op)
     for got in (kscan.segmented_scan_plain(v, None, op),
                 kscan.segmented_scan(v, None, op)):

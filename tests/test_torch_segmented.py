@@ -33,8 +33,8 @@ def _run(engine, keys, values=None, **kw):
     want = rs.segmented_sort.__wrapped__(jnp.asarray(keys),
                                          jnp.asarray(OFFSETS), jv,
                                          config=jcfg, **kw)
-    got = rt.segmented_sort(from_numpy(keys), from_numpy(OFFSETS),
-                            None if values is None else tree_from_numpy(values),
+    got = rt.segmented_sort(from_numpy(keys, device="cpu"), from_numpy(OFFSETS, device="cpu"),
+                            None if values is None else tree_from_numpy(values, device="cpu"),
                             config=tcfg, **kw)
     return got, want
 
@@ -75,8 +75,8 @@ def test_bit_ranges_and_segment_bound(engine, begin, end, bound):
 
 
 def test_empty_input():
-    e = from_numpy(np.array([], dtype=np.uint32))
-    off = from_numpy(np.array([0, 0], dtype=np.int32))
+    e = from_numpy(np.array([], dtype=np.uint32), device="cpu")
+    off = from_numpy(np.array([0, 0], dtype=np.int32), device="cpu")
     assert rt.segmented_sort(e, off).numel() == 0
     k, v = rt.segmented_sort(e, off, [e], config=rt.SortConfig(
         engine="bitonic"))

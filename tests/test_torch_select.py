@@ -49,7 +49,7 @@ DTYPES = [np.uint8, np.int16, np.uint32, np.int32, np.float32, np.int64,
 def test_kth_value_matches_jax(dtype, largest):
     rng = np.random.default_rng(DTYPES.index(dtype) + 20 * largest)
     k = _keys(rng, dtype, distinct=300)
-    jk, tk = jnp.asarray(k), from_numpy(k)
+    jk, tk = jnp.asarray(k), from_numpy(k, device="cpu")
     for kk in (0, 1, 77, N // 2, N - 1):
         got = rt.kth_value(tk, kk, largest=largest)
         assert got.dim() == 0
@@ -68,7 +68,7 @@ def test_kth_value_matches_jax(dtype, largest):
 def test_top_k_matches_jax(dtype, largest, sorted_result):
     rng = np.random.default_rng(7 + 2 * largest + sorted_result)
     k = _keys(rng, dtype, distinct=40)  # ~30 copies of each value
-    jk, tk = jnp.asarray(k), from_numpy(k)
+    jk, tk = jnp.asarray(k), from_numpy(k, device="cpu")
     for kk in (45, N):
         wv, wi = rs.top_k(jk, kk, largest=largest, sorted_result=sorted_result)
         gv, gi = rt.top_k(tk, kk, largest=largest, sorted_result=sorted_result)

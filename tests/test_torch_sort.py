@@ -61,7 +61,7 @@ def make_keys(dtype, n=N, seed=0, distinct=None):
 def test_sort_matches_jax(dtype, descending):
     keys = make_keys(dtype, seed=3)
     want = np.asarray(rs.sort(jnp.asarray(keys), descending=descending))
-    _eq(rt.sort(from_numpy(keys), descending=descending), want)
+    _eq(rt.sort(from_numpy(keys, device="cpu"), descending=descending), want)
 
 
 @pytest.mark.parametrize("pay_dtype", [np.uint32, np.int32, np.float32,
@@ -75,12 +75,12 @@ def test_sort_pairs_payloads(pay_dtype):
     idx = np.arange(N, dtype=np.int32)  # proves stability
     jk, (jp, ji) = rs.sort_pairs(jnp.asarray(keys),
                                  (jnp.asarray(pay), jnp.asarray(idx)))
-    tk, (tp, ti) = rt.sort_pairs(from_numpy(keys),
-                                 (from_numpy(pay), from_numpy(idx)))
+    tk, (tp, ti) = rt.sort_pairs(from_numpy(keys, device="cpu"),
+                                 (from_numpy(pay, device="cpu"), from_numpy(idx, device="cpu")))
     _eq(tk, np.asarray(jk))
     _eq(tp, np.asarray(jp))
     _eq(ti, np.asarray(ji))
-    assert tp.dtype == from_numpy(pay).dtype
+    assert tp.dtype == from_numpy(pay, device="cpu").dtype
 
 
 @pytest.mark.parametrize("key_dtype,descending", [
@@ -92,7 +92,7 @@ def test_sort_pairs_wide_and_narrow_keys(key_dtype, descending):
     jk, jv = rs.sort_pairs(jnp.asarray(keys),
                            {k: jnp.asarray(v) for k, v in vals.items()},
                            descending=descending)
-    tk, tv = rt.sort_pairs(from_numpy(keys), tree_from_numpy(vals),
+    tk, tv = rt.sort_pairs(from_numpy(keys, device="cpu"), tree_from_numpy(vals, device="cpu"),
                            descending=descending)
     _eq(tk, np.asarray(jk))
     for name in vals:
@@ -107,11 +107,11 @@ def test_bit_ranges(dtype, begin, end):
     idx = np.arange(N, dtype=np.uint32)
     jk, ji = rs.sort_pairs(jnp.asarray(keys), jnp.asarray(idx),
                            begin_bit=begin, end_bit=end)
-    tk, ti = rt.sort_pairs(from_numpy(keys), from_numpy(idx),
+    tk, ti = rt.sort_pairs(from_numpy(keys, device="cpu"), from_numpy(idx, device="cpu"),
                            begin_bit=begin, end_bit=end)
     _eq(tk, np.asarray(jk))
     _eq(ti, np.asarray(ji))
-    _eq(rt.sort(from_numpy(keys), begin_bit=begin, end_bit=end),
+    _eq(rt.sort(from_numpy(keys, device="cpu"), begin_bit=begin, end_bit=end),
         np.asarray(rs.sort(jnp.asarray(keys), begin_bit=begin, end_bit=end)))
 
 
@@ -122,7 +122,7 @@ def test_argsort(dtype, descending, end):
     keys = make_keys(dtype, seed=19, distinct=300)
     want = np.asarray(rs.argsort(jnp.asarray(keys), descending=descending,
                                  end_bit=end))
-    got = rt.argsort(from_numpy(keys), descending=descending, end_bit=end)
+    got = rt.argsort(from_numpy(keys, device="cpu"), descending=descending, end_bit=end)
     assert got.dtype == torch.int32
     _eq(got, want)
 
@@ -131,7 +131,7 @@ def test_unstable_pairs_multiset_within_key():
     keys = make_keys(np.uint32, seed=23, distinct=20)
     pay = make_keys(np.uint32, seed=29)
     jk, jp = rs.sort_pairs(jnp.asarray(keys), jnp.asarray(pay), stable=False)
-    tk, tp = rt.sort_pairs(from_numpy(keys), from_numpy(pay), stable=False)
+    tk, tp = rt.sort_pairs(from_numpy(keys, device="cpu"), from_numpy(pay, device="cpu"), stable=False)
     tk, tp, jk, jp = to_numpy(tk), to_numpy(tp), np.asarray(jk), np.asarray(jp)
     np.testing.assert_array_equal(tk, jk)
     # equal as a multiset within each key: sort payloads inside key runs
@@ -143,8 +143,8 @@ def test_unstable_pairs_multiset_within_key():
 def test_tiny_inputs(n):
     keys = make_keys(np.int32, n=n, seed=31)
     pay = np.arange(n, dtype=np.int64)
-    _eq(rt.sort(from_numpy(keys)), np.asarray(rs.sort(jnp.asarray(keys))))
-    tk, tp = rt.sort_pairs(from_numpy(keys), from_numpy(pay))
+    _eq(rt.sort(from_numpy(keys, device="cpu")), np.asarray(rs.sort(jnp.asarray(keys))))
+    tk, tp = rt.sort_pairs(from_numpy(keys, device="cpu"), from_numpy(pay, device="cpu"))
     jk, jp = rs.sort_pairs(jnp.asarray(keys), jnp.asarray(pay))
     _eq(tk, np.asarray(jk))
     _eq(tp, np.asarray(jp))
@@ -155,12 +155,12 @@ def test_constant_keys_skip_every_pass():
 
     keys = np.full(N, 0xDEADBEEF, dtype=np.uint32)
     pay = make_keys(np.float32, seed=37)
-    pay_t = from_numpy(pay)
+    pay_t = from_numpy(pay, device="cpu")
     calls = []
     orig = stage.partition_stage_plain
     stage.partition_stage_plain = lambda *a, **k: calls.append(1) or orig(*a, **k)
     try:
-        tk, tp = rt.sort_pairs(from_numpy(keys), pay_t)
+        tk, tp = rt.sort_pairs(from_numpy(keys, device="cpu"), pay_t)
     finally:
         stage.partition_stage_plain = orig
     assert calls == []  # every digit puts all keys in one bucket
@@ -178,13 +178,13 @@ def test_unique_leading_payload_is_the_stable_result():
     jk, (jt, jv) = rs.sort_pairs(jnp.asarray(keys),
                                  (jnp.asarray(tag), jnp.asarray(vals)),
                                  unique_leading_payload=True)
-    tk, (tt, tv) = rt.sort_pairs(from_numpy(keys),
-                                 (from_numpy(tag), from_numpy(vals)),
+    tk, (tt, tv) = rt.sort_pairs(from_numpy(keys, device="cpu"),
+                                 (from_numpy(tag, device="cpu"), from_numpy(vals, device="cpu")),
                                  unique_leading_payload=True)
     for g, w in ((tk, jk), (tt, jt), (tv, jv)):
         _eq(g, np.asarray(w))
-    _, (st, _) = rt.sort_pairs(from_numpy(keys),
-                               (from_numpy(tag), from_numpy(vals)))
+    _, (st, _) = rt.sort_pairs(from_numpy(keys, device="cpu"),
+                               (from_numpy(tag, device="cpu"), from_numpy(vals, device="cpu")))
     _eq(tt, to_numpy(st))
 
 
@@ -196,12 +196,12 @@ def test_sort_struct_matches_jax():
     (ja, jb, jc), jv = rs.sort_struct(
         [jnp.asarray(x) for x in (a, b, c)], [jnp.asarray(v) for v in vals],
         descending=True)
-    (ta, tb, tc), tv = rt.sort_struct([from_numpy(x) for x in (a, b, c)],
-                                      tree_from_numpy(vals), descending=True)
+    (ta, tb, tc), tv = rt.sort_struct([from_numpy(x, device="cpu") for x in (a, b, c)],
+                                      tree_from_numpy(vals, device="cpu"), descending=True)
     for g, w in zip((ta, tb, tc, *tv), (ja, jb, jc, *jv)):
         _eq(g, np.asarray(w))
     assert isinstance(tv, list)
-    keys_only = rt.sort_struct([from_numpy(a), from_numpy(c)])
+    keys_only = rt.sort_struct([from_numpy(a, device="cpu"), from_numpy(c, device="cpu")])
     ja2, jc2 = rs.sort_struct([jnp.asarray(a), jnp.asarray(c)])
     _eq(keys_only[0], np.asarray(ja2))
     _eq(keys_only[1], np.asarray(jc2))
@@ -214,7 +214,7 @@ def test_digit_widths(radix_bits):
     jk, ji = rs.sort_pairs(jnp.asarray(keys), jnp.asarray(idx),
                            begin_bit=5, end_bit=59)
     cfg = rt.SortConfig(radix_bits=radix_bits)
-    tk, ti = rt.sort_pairs(from_numpy(keys), from_numpy(idx), begin_bit=5,
+    tk, ti = rt.sort_pairs(from_numpy(keys, device="cpu"), from_numpy(idx, device="cpu"), begin_bit=5,
                            end_bit=59, config=cfg)
     _eq(tk, np.asarray(jk))
     _eq(ti, np.asarray(ji))
@@ -241,7 +241,7 @@ def test_config():
 
 
 def test_rejects_mismatched_values():
-    keys = from_numpy(make_keys(np.uint32, n=10))
+    keys = from_numpy(make_keys(np.uint32, n=10), device="cpu")
     with pytest.raises(ValueError):
         rt.sort_pairs(keys, torch.zeros(9))
     with pytest.raises(ValueError):
@@ -276,7 +276,7 @@ def test_u64_pipeline_one_histogram_per_sort(begin, end, descending,
     idx = np.arange(N, dtype=np.uint32)
     jk, ji = rs.sort_pairs(jnp.asarray(keys), jnp.asarray(idx),
                            begin_bit=begin, end_bit=end, descending=descending)
-    tk, ti = rt.sort_pairs(from_numpy(keys), from_numpy(idx), begin_bit=begin,
+    tk, ti = rt.sort_pairs(from_numpy(keys, device="cpu"), from_numpy(idx, device="cpu"), begin_bit=begin,
                            end_bit=end, descending=descending)
     _eq(tk, np.asarray(jk))
     _eq(ti, np.asarray(ji))

@@ -53,7 +53,7 @@ def test_sort_matches_jax_network(dtype, descending):
     # ascending: a padded size; descending: a power of two
     keys = make_keys(dtype, n=NPOW if descending else N, seed=5)
     want = j_sort(jnp.asarray(keys), descending=descending, config=JB)
-    _eq(rt.sort(from_numpy(keys), descending=descending, config=TB),
+    _eq(rt.sort(from_numpy(keys, device="cpu"), descending=descending, config=TB),
         np.asarray(want))
 
 
@@ -92,7 +92,7 @@ def test_sort_pairs_matches_jax_network(case, descending):
     vals = tuple(vals)
     jk, jv = j_pairs(jnp.asarray(keys), _j(vals), descending=descending,
                      config=JB, stable=stable, unique_leading_payload=tag)
-    tk, tv = rt.sort_pairs(from_numpy(keys), tree_from_numpy(vals),
+    tk, tv = rt.sort_pairs(from_numpy(keys, device="cpu"), tree_from_numpy(vals, device="cpu"),
                            descending=descending, config=TB, stable=stable,
                            unique_leading_payload=tag)
     _eq(tk, np.asarray(jk))
@@ -105,7 +105,7 @@ def test_sort_pairs_matches_jax_network(case, descending):
 def test_argsort_matches_jax_network(dtype, descending):
     keys = make_keys(dtype, n=N, seed=13, distinct=300)
     want = j_argsort(jnp.asarray(keys), descending=descending, config=JB)
-    got = rt.argsort(from_numpy(keys), descending=descending, config=TB)
+    got = rt.argsort(from_numpy(keys, device="cpu"), descending=descending, config=TB)
     assert got.dtype == torch.int32
     _eq(got, np.asarray(want))
 
@@ -117,11 +117,11 @@ def test_sort_struct_matches_jax_network(stable):
     v = make_keys(np.float32, n=NPOW, seed=23)
     (jh, jl), jv = j_struct((jnp.asarray(hi), jnp.asarray(lo)), jnp.asarray(v),
                             config=JB, stable=stable)
-    (th, tl), tv = rt.sort_struct((from_numpy(hi), from_numpy(lo)),
-                                  from_numpy(v), config=TB, stable=stable)
+    (th, tl), tv = rt.sort_struct((from_numpy(hi, device="cpu"), from_numpy(lo, device="cpu")),
+                                  from_numpy(v, device="cpu"), config=TB, stable=stable)
     for g, w in ((th, jh), (tl, jl), (tv, jv)):
         _eq(g, np.asarray(w))
-    keys_only = rt.sort_struct((from_numpy(hi), from_numpy(lo)), config=TB)
+    keys_only = rt.sort_struct((from_numpy(hi, device="cpu"), from_numpy(lo, device="cpu")), config=TB)
     for g, w in zip(keys_only, j_struct((jnp.asarray(hi), jnp.asarray(lo)),
                                         config=JB)):
         _eq(g, np.asarray(w))
@@ -139,22 +139,22 @@ def test_split_sort_merge_matches_jax(monkeypatch):
     n = 4096 + 700
     keys = make_keys(np.uint32, n=n, seed=29, distinct=60)
     v = make_keys(np.int32, n=n, seed=31)
-    _eq(rt.sort(from_numpy(keys), config=cfg),
+    _eq(rt.sort(from_numpy(keys, device="cpu"), config=cfg),
         np.asarray(j_sort(jnp.asarray(keys), config=JB)))
-    tk, tv = rt.sort_pairs(from_numpy(keys), from_numpy(v), config=cfg)
+    tk, tv = rt.sort_pairs(from_numpy(keys, device="cpu"), from_numpy(v, device="cpu"), config=cfg)
     jk, jv = j_pairs(jnp.asarray(keys), jnp.asarray(v), config=JB)
     _eq(tk, np.asarray(jk))
     _eq(tv, np.asarray(jv))
     # unstable and padded: every plane compares, so the result is the
     # (key, value) order, whatever the route
-    tk, tv = rt.sort_pairs(from_numpy(keys), from_numpy(v), config=cfg,
+    tk, tv = rt.sort_pairs(from_numpy(keys, device="cpu"), from_numpy(v, device="cpu"), config=cfg,
                            stable=False)
     o = np.lexsort((v.view(np.uint32), keys))
     _eq(tk, keys[o])
     _eq(tv, v[o])
     assert len(merges) == 3
     # below the threshold the padded network runs
-    _eq(rt.sort(from_numpy(keys), config=TB), np.sort(keys))
+    _eq(rt.sort(from_numpy(keys, device="cpu"), config=TB), np.sort(keys))
     assert len(merges) == 3
 
 
@@ -176,11 +176,11 @@ def test_fallbacks_take_the_stable_radix_path(monkeypatch):
     ]
     for k, v, kw in cases:
         jk, jv = j_pairs(jnp.asarray(k), _j(v), config=JB, **kw)
-        tk, tv = rt.sort_pairs(from_numpy(k), tree_from_numpy(v), config=TB,
+        tk, tv = rt.sort_pairs(from_numpy(k, device="cpu"), tree_from_numpy(v, device="cpu"), config=TB,
                                **kw)
         _eq(tk, np.asarray(jk))
         _eq_tree(tv, jv)
-    _eq(rt.sort(from_numpy(keys), end_bit=9, config=TB),
+    _eq(rt.sort(from_numpy(keys, device="cpu"), end_bit=9, config=TB),
         np.asarray(j_sort(jnp.asarray(keys), end_bit=9, config=JB)))
 
 
@@ -190,9 +190,9 @@ def test_operators_on_the_network_equal_radix(op):
     # and the group-by sorts stable pairs: tags increase in input order, so
     # both give the radix engine's bits
     rng = np.random.default_rng(53)
-    bk = from_numpy(rng.permutation(300).astype(np.uint32))
-    bv = from_numpy(rng.integers(-100, 100, 300).astype(np.int32))
-    pk = from_numpy(rng.integers(0, 400, 700).astype(np.uint32))
+    bk = from_numpy(rng.permutation(300).astype(np.uint32), device="cpu")
+    bv = from_numpy(rng.integers(-100, 100, 300).astype(np.int32), device="cpu")
+    pk = from_numpy(rng.integers(0, 400, 700).astype(np.uint32), device="cpu")
     if op == "groupby mean":
         run = lambda cfg: rt.groupby(pk, bv.repeat(3)[:700], agg="mean",
                                      config=cfg)

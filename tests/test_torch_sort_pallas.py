@@ -21,5 +21,5 @@ def test_sort_bit_range_matches_jax_pallas_engine():
     jcfg = rs.SortConfig(engine="pallas", interpret=True, stage_rows=8,
                          radix_bits=2)
     want = rs.sort(jnp.asarray(keys), end_bit=16, config=jcfg)
-    got = rt.sort(from_numpy(keys), end_bit=16, config=config_from_jax(jcfg))
+    got = rt.sort(from_numpy(keys, device="cpu"), end_bit=16, config=config_from_jax(jcfg))
     np.testing.assert_array_equal(to_numpy(got), np.asarray(want))

@@ -52,8 +52,8 @@ def test_stage_matches_jax_interpret(case, width, shift, n_planes):
         [jnp.asarray(p).reshape(-1, 128) for p in planes], jnp.asarray(gbase),
         shift=shift, width=width, rows=64, interpret=True)
     want = [np.asarray(w).reshape(-1) for w in want]
-    got = tstage.partition_stage([from_numpy(p) for p in planes],
-                                 from_numpy(gbase), shift=shift, width=width)
+    got = tstage.partition_stage([from_numpy(p, device="cpu") for p in planes],
+                                 from_numpy(gbase, device="cpu"), shift=shift, width=width)
     assert len(got) == n_planes
     for g, w in zip(got, want):
         np.testing.assert_array_equal(to_numpy(g), w)
@@ -74,8 +74,8 @@ def test_stage_width8_vs_numpy(n, shift, n_planes, case):
     planes = [keys] + [rng.integers(0, 2**32, size=n, dtype=np.uint64)
                        .astype(np.uint32) for _ in range(n_planes - 1)]
     out = [torch.empty(n, dtype=torch.uint32) for _ in planes]
-    got = tstage.partition_stage([from_numpy(p) for p in planes],
-                                 from_numpy(_gbase(keys, shift, 8)),
+    got = tstage.partition_stage([from_numpy(p, device="cpu") for p in planes],
+                                 from_numpy(_gbase(keys, shift, 8), device="cpu"),
                                  shift=shift, width=8, out=out)
     assert all(g is o for g, o in zip(got, out))
     for g, w in zip(got, _oracle(planes, shift, 8)):
@@ -127,8 +127,8 @@ def test_stage_tile_edges_match_jax(n, n_planes, width, shift):
     rng = np.random.default_rng(n + n_planes)
     planes = [rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
               for _ in range(n_planes)]
-    got = tstage.partition_stage([from_numpy(p) for p in planes],
-                                 from_numpy(_gbase(planes[0], shift, width)),
+    got = tstage.partition_stage([from_numpy(p, device="cpu") for p in planes],
+                                 from_numpy(_gbase(planes[0], shift, width), device="cpu"),
                                  shift=shift, width=width)
     for g, w in zip(got, _jax_padded(planes, shift, width)):
         np.testing.assert_array_equal(to_numpy(g), w)

@@ -62,13 +62,13 @@ def test_matches_jax(fn, dtype):
     if fn == "distinct":
         rng.shuffle(k)
     want = getattr(rs, fn)(jnp.asarray(k))
-    got = getattr(rt, fn)(from_numpy(k))
+    got = getattr(rt, fn)(from_numpy(k, device="cpu"))
     assert_same(got, want)
 
 
 def test_run_starts_match_jax():
     k = _runs(np.random.default_rng(3), np.float32)
-    np.testing.assert_array_equal(to_numpy(t_run_starts(from_numpy(k))),
+    np.testing.assert_array_equal(to_numpy(t_run_starts(from_numpy(k, device="cpu"))),
                                   np.asarray(j_run_starts(jnp.asarray(k))))
 
 
@@ -76,7 +76,7 @@ def test_run_starts_match_jax():
 def test_tiny_inputs_match_jax(n):
     k = np.array([7, 7][:n], dtype=np.uint32)
     for fn in FNS:
-        assert_same(getattr(rt, fn)(from_numpy(k)),
+        assert_same(getattr(rt, fn)(from_numpy(k, device="cpu")),
                     getattr(rs, fn)(jnp.asarray(k)))
 
 

@@ -80,9 +80,9 @@ def test_window_matches_jax(descending, masked, keys):
                      {k: jnp.asarray(v) for k, v in vals.items()}, ALL_FNS,
                      valid=None if valid is None else jnp.asarray(valid),
                      descending=descending)
-    got = rt.window(from_numpy(part), from_numpy(order),
-                    {k: from_numpy(v) for k, v in vals.items()}, ALL_FNS,
-                    valid=None if valid is None else from_numpy(valid),
+    got = rt.window(from_numpy(part, device="cpu"), from_numpy(order, device="cpu"),
+                    {k: from_numpy(v, device="cpu") for k, v in vals.items()}, ALL_FNS,
+                    valid=None if valid is None else from_numpy(valid, device="cpu"),
                     descending=descending)
     _compare(got, want)
 
@@ -99,14 +99,14 @@ def test_window_table_sources_may_name_the_keys(spec):
     valid = rng.random(N) < 0.9
     want, wc = j_window_table({k: jnp.asarray(v) for k, v in cols.items()},
                               "p", "o", spec, valid=jnp.asarray(valid))
-    got, gc = t_window_table({k: from_numpy(v) for k, v in cols.items()},
-                             "p", "o", spec, valid=from_numpy(valid))
+    got, gc = t_window_table({k: from_numpy(v, device="cpu") for k, v in cols.items()},
+                             "p", "o", spec, valid=from_numpy(valid, device="cpu"))
     assert set(got) == set(want)
     for k in want:
         assert_same(got[k], want[k])
     assert_same(gc, wc)
     with pytest.raises(ValueError, match="collides"):
-        t_window_table({k: from_numpy(v) for k, v in cols.items()}, "p", "o",
+        t_window_table({k: from_numpy(v, device="cpu") for k, v in cols.items()}, "p", "o",
                        (("v", None, "rank"),))
 
 
