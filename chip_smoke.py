@@ -33,7 +33,10 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      kernel's registers, spills and stack frame as ptxas reports them;
   4. slice: sort (2^24 u32 keys) and stable sort_pairs (2^28 u64 keys + u32
      payload) and smaller cases against a torch.sort oracle on the card, bit
-     for bit, with the kernels' launch counters read around each path;
+     for bit, with the kernels' launch counters read around each path; and
+     the largest device sort, 2^31 u32 keys whose top byte is one value (that
+     digit counts 2^31: its pass must be skipped), checked without torch.sort
+     (ordered, equal byte histograms, u64 sums and xors);
   5. operators: the FK inner join (probe 2^27 x build 2^24), the group-by sum
      and count over Zipf-like keys (2^26 rows) and a full outer join feeding
      a grouped mean (probe 2^22 x build 2^20), each through its recipe in
@@ -85,9 +88,23 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      2^22 (row for row); each with its seconds split into copies, card and
      host merge, the host's RAM and the peak RSS (2^29 and a `reduced` line
      where the host has too little RAM for 2^30);
+  6d. distributed: the parallel/ layer through its public entry points on a
+     one-rank NCCL mesh (one card holds one NCCL rank), each counted, bit
+     for bit against a plain-torch oracle (quantiles within MEAN_TOL) and
+     timed beside its single-GPU call: D1 sort_distributed 2^28 u32 (two
+     exchange rounds), D2 stable sort_pairs_distributed 2^27, D3
+     groupby_distributed sum and count over 2^26 Zipf-like keys, D4
+     join_distributed 2^27 x 2^24 by the hash and the broadcast routes, D5
+     scan_by_key_distributed 2^26, D6 kth_value, top_k 1000, distinct and
+     groupby_quantile at 2^26, D7 filter_sort_join_distributed 2^27 x 2^24
+     and Query.run(mesh=) of P4's README plan; then D1, D3, D4 and D7's plan
+     at 2^24 rows on 4 ranks over gloo with CUDA tensors of the same card
+     (tests/torch_world.py, a hard time limit; D4 and the plan's join take
+     the hash route, which moves rows between the ranks), each rank
+     against the oracle;
   7. (--profile only) a torch.profiler breakdown of every path (the network
-     paths included) with the device's idle share, and a sweep of radix_bits,
-     block_threads and items_per_thread on configs 1 and 2;
+     and D paths included) with the device's idle share, and a sweep of
+     radix_bits, block_threads and items_per_thread on configs 1 and 2;
   8. times: CUDA-event medians of every path (P1-P4 included) and of its
      torch oracle (the
      network paths also beside the radix engine), of (d)'s sort on the
@@ -599,6 +616,87 @@ def check_sort(name, got_keys, keys, descending=False, end_bit=None,
     return e
 
 
+N_2_31 = 1 << 31  # the largest device sort: one digit counts 2^31 keys
+TIMES_2_31 = {}
+
+
+def u32_chunks(t: torch.Tensor, step: int = 1 << 28):
+    for i in range(0, t.numel(), step):
+        yield t[i:i + step]
+
+
+def byte_histograms(t: torch.Tensor) -> torch.Tensor:
+    """(4, 256) int64 counts of each byte of u32 keys, by torch.bincount
+    over 2^28-row chunks (independent of the port's kernels)."""
+    out = torch.zeros((4, 256), dtype=torch.int64, device=t.device)
+    for c in u32_chunks(t):
+        w = c.view(torch.int32)
+        for b in range(4):
+            out[b] += torch.bincount(((w >> (8 * b)) & 255).to(torch.int64),
+                                     minlength=256)
+    return out
+
+
+def sum_and_xor(t: torch.Tensor) -> tuple[int, int]:
+    """The u64 sum and the xor of u32 keys (a pairwise xor tree)."""
+    total = sum(int(u32_to_i64(c).sum()) for c in u32_chunks(t))
+    x = t.view(torch.int32)
+    while x.numel() > 1:
+        if x.numel() % 2:
+            x = torch.cat([x, torch.zeros(1, dtype=torch.int32,
+                                          device=x.device)])
+        x = x[0::2] ^ x[1::2]
+    return total, int(x[0]) & 0xFFFFFFFF
+
+
+def check_sort_2_31(gen: torch.Generator) -> dict:
+    """2^31 u32 keys whose top byte is one value (the rest random): the top
+    digit counts 2^31, a count and a base that wrap an int32. The histogram
+    must read 2^31 there and the sort must skip that pass as trivial;
+    checked without torch.sort: adjacent keys do not decrease, and input
+    and output have equal byte histograms, u64 sums and xors."""
+    import cuda.radixsort_tpu_torch as rt
+    from cuda.radixsort_tpu_torch.kernels import histogram as khist
+    from cuda.radixsort_tpu_torch.utils.profiling import cuda_time_ms
+
+    keys = torch.empty(N_2_31, dtype=torch.int32, device="cuda")
+    for c in u32_chunks(keys):
+        c.copy_(torch.randint(0, 1 << 24, (c.numel(),), dtype=torch.int64,
+                              device="cuda", generator=gen) | (0x5A << 24))
+    keys = keys.view(torch.uint32)
+    hist = khist.counts64(khist.limb_histograms([keys], [(0, 32)], 8))
+    expect(int(hist[3].max()) == N_2_31 and int(hist[3][0x5A]) == N_2_31,
+           f"2^31: the top digit counts {int(hist[3].max())}, not 2^31")
+    launches: dict = {}
+    out = run_counted("sort 2^31 u32, top byte one value",
+                      lambda: rt.sort(keys), SORT_KERNELS, launches)
+    expect(launches["partition_stage"] == 3,
+           f"2^31: {launches['partition_stage']} stage passes, not 3 (the "
+           "top digit's pass is trivial)")
+    expect(out.numel() == N_2_31 and out.dtype == torch.uint32,
+           "2^31: output shape or dtype")
+    ok = True
+    for i in range(0, N_2_31, 1 << 28):
+        w = u32_to_i64(out[i:i + (1 << 28) + 1])
+        ok = ok and bool((w[1:] >= w[:-1]).all())
+    expect(ok, "2^31: adjacent output keys decrease")
+    expect(torch.equal(byte_histograms(keys), byte_histograms(out)),
+           "2^31: input and output byte histograms differ")
+    expect(sum_and_xor(keys) == sum_and_xor(out),
+           "2^31: input and output u64 sums or xors differ")
+    del out
+    torch.cuda.empty_cache()
+    TIMES_2_31["sort_ms"] = cuda_time_ms(lambda: rt.sort(keys), runs=3,
+                                         warmup=1)
+    log(f"[slice] sort 2^31 u32 (top byte one value): ordered, byte "
+        f"histograms, u64 sum and xor == the input's; the top digit counts "
+        f"2^31 and its pass is skipped (3 stage passes); "
+        f"{TIMES_2_31['sort_ms']:.3f} ms")
+    del keys
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_slice(gen: torch.Generator) -> dict:
     import cuda.radixsort_tpu_torch as rt
     from cuda.radixsort_tpu_torch import twiddle
@@ -626,6 +724,9 @@ def phase_slice(gen: torch.Generator) -> dict:
     del out2k, out2v, keys2, pay2
     torch.cuda.empty_cache()
     log("[slice] sort (2^24 u32) and stable sort_pairs (2^28 u64 + u32) == oracle")
+    launches_2_31 = check_sort_2_31(gen)
+    for k, c in launches_2_31.items():
+        launches[k] = launches.get(k, 0) + c
 
     # smaller cases with many ties, so stability shows through an index
     idx = torch.arange(N_SMALL, dtype=torch.int32, device="cuda")
@@ -2168,6 +2269,406 @@ def phase_external(gen: torch.Generator, launches: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# distributed (phase 6d): the parallel/ layer through torch.distributed
+# ---------------------------------------------------------------------------
+
+N_D_SORT = 1 << 28     # D1: lanes above 4 MB, so the default 2 rounds
+N_D_PAIRS = 1 << 27    # D2
+N_D_SCAN = 1 << 26     # D5
+N_D_SELECT = 1 << 26   # D6
+N_GLOO = 1 << 24       # rows of each path of the 4-rank gloo leg
+N_GLOO_BUILD = 1 << 21  # above the 2^20 broadcast threshold: hash joins
+GLOO_RANKS = 4
+GLOO_TIMEOUT_S = 300
+D1 = "D1 sort_distributed 2^28 u32"
+D2 = "D2 sort_pairs_distributed 2^27 u32+u32"
+D3 = "D3 groupby_distributed sum, count 2^26"
+D4 = "D4 join_distributed 2^27 x 2^24, hash route"
+D4B = "D4 join_distributed 2^27 x 2^24, broadcast route"
+D5 = "D5 scan_by_key_distributed 2^26"
+D6 = "D6 kth_value, top_k 1000, distinct, groupby_quantile 2^26"
+D7 = "D7 filter_sort_join_distributed 2^27 x 2^24"
+D7Q = "D7 Query.run(mesh=) README plan 2^26 x 2^22"
+DIST_PATHS = (D1, D2, D3, D4, D4B, D5, D6, D7, D7Q)
+
+
+def nccl_world():
+    """A one-rank NCCL world in this process (a FileStore under build/):
+    one card holds one NCCL rank. Returns the store's path: the store may
+    delete its file itself once the process group is destroyed."""
+    import torch.distributed as dist
+
+    path = os.path.join(HERE, "build", "chip_smoke_dist_store")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    dist.init_process_group("nccl", store=dist.FileStore(path, 1), rank=0,
+                            world_size=1)
+    return path
+
+
+def oracle_sorted_bits(keys: torch.Tensor) -> torch.Tensor:
+    """u32 keys sorted, as int32 bits."""
+    return torch.sort(u32_to_i64(keys)).values.to(torch.int32)
+
+
+def oracle_scan_by_key(keys, vals):
+    """int32 running sums within runs of equal consecutive keys (wrapping)."""
+    heads = segment_starts([keys.view(torch.int32)])
+    return wrap_i32(seg_cumsum(vals.to(torch.int64), start_fill(heads)))
+
+
+def oracle_top_k(keys, k):
+    """The k largest u32 keys (ties to the smaller row) and their rows."""
+    order = torch.sort(-u32_to_i64(keys), stable=True).indices[:k]
+    return keys.view(torch.int32)[order], order.to(torch.int32)
+
+
+def oracle_group_quantiles(keys, vals, qs):
+    """Per-group quantiles of u32 values by linear interpolation between
+    the floor- and ceil-rank values (float32 rank and lerp arithmetic, as
+    the operators compute them): (group keys int64, [column per q])."""
+    key = (u32_to_i64(keys) << 32) | u32_to_i64(vals)
+    s = torch.sort(key).values
+    sk, sv = s >> 32, s & 0xFFFFFFFF
+    uniq, counts = torch.unique_consecutive(sk, return_counts=True)
+    start = torch.cumsum(counts, 0) - counts
+    cols = []
+    for q in qs:
+        idx_f = (counts - 1).to(torch.float32) * torch.tensor(
+            q, dtype=torch.float32, device=keys.device)
+        lo = torch.floor(idx_f).to(torch.int64)
+        hi = torch.ceil(idx_f).to(torch.int64)
+        f = idx_f - lo.to(torch.float32)
+        vlo = sv[start + lo].to(torch.float32)
+        vhi = sv[start + hi].to(torch.float32)
+        cols.append(vlo * (1 - f) + vhi * f)
+    return uniq, cols
+
+
+def expect_close(name: str, what: str, got, want) -> float:
+    diff = (got - want).abs()
+    expect(bool((diff <= MEAN_TOL * want.abs()).all()),
+           f"{name}: {what} off by more than {MEAN_TOL} relative")
+    return float((diff / want.abs().clamp_min(1e-30)).max())
+
+
+def dist_paths(gen: torch.Generator, mesh) -> dict:
+    """name -> (distributed call, its check, the single-GPU call, rows,
+    kernels that must launch) of D1-D7 on a one-rank mesh."""
+    import cuda.radixsort_tpu_torch as rt
+    from cuda.radixsort_tpu_torch.models import flagships
+    from cuda.radixsort_tpu_torch.parallel import dscan, dselect, dsort, shuffle
+    from cuda.radixsort_tpu_torch.pipeline import query
+
+    paths = {}
+
+    keys1 = rand_bits(N_D_SORT, torch.uint32, gen)
+
+    def check_d1(out):
+        o, counts, st = out
+        # two rounds of one 2^27-row lane each: the output is 2^28 rows
+        expect(counts.tolist() == [N_D_SORT] and o.numel() == N_D_SORT
+               and int(st.rows_in.sum()) == N_D_SORT,
+               f"{D1}: counts {counts.tolist()}, {o.numel()} rows")
+        expect_equal(D1, "keys", o.view(torch.int32), oracle_sorted_bits(keys1))
+
+    paths[D1] = (lambda: dsort.sort_distributed(keys1, mesh=mesh), check_d1,
+                 lambda: rt.sort(keys1), N_D_SORT, SORT_KERNELS)
+
+    keys2 = (rand_bits(N_D_PAIRS, torch.uint32, gen).view(torch.int32)
+             & 0xFFFFFF).view(torch.uint32)  # 2^24 values: ties
+    vals2 = rand_bits(N_D_PAIRS, torch.uint32, gen)
+
+    def check_d2(out):
+        ok, ov, counts, _ = out
+        expect(counts.tolist() == [N_D_PAIRS], f"{D2}: {counts.tolist()}")
+        order = oracle_order(keys2)
+        expect_equal(D2, "keys", ok[:N_D_PAIRS].view(torch.int32),
+                     keys2.view(torch.int32)[order])
+        expect_equal(D2, "values (stable)", ov[:N_D_PAIRS].view(torch.int32),
+                     vals2.view(torch.int32)[order])
+
+    paths[D2] = (lambda: dsort.sort_pairs_distributed(keys2, vals2, mesh=mesh),
+                 check_d2, lambda: rt.sort_pairs(keys2, vals2), N_D_PAIRS,
+                 SORT_KERNELS)
+
+    _, (gk, gv) = flagships.groupby_zipf(N_GROUP, generator=gen, device="cuda")
+
+    def check_d3(out):
+        (k, s, c, _), (k2, n2, c2, _) = out
+        wk, ws, wc = oracle_groupby(gk, gv)
+        g = wk.numel()
+        expect(c.tolist() == [g] and c2.tolist() == [g],
+               f"{D3}: {c.tolist()} / {c2.tolist()} groups, oracle {g}")
+        for what, got, want in (("sum keys", k[:g], wk), ("sums", s[:g], ws),
+                                ("count keys", k2[:g], wk),
+                                ("counts", n2[:g], wc)):
+            expect_equal(D3, what, got.view(torch.int32), want)
+
+    paths[D3] = (lambda: (shuffle.groupby_distributed(gk, gv, mesh=mesh),
+                          shuffle.groupby_distributed(gk, gv, mesh=mesh,
+                                                      agg="count")),
+                 check_d3, lambda: (rt.groupby(gk, gv),
+                                    rt.groupby(gk, agg="count")),
+                 N_GROUP, RADIX_OPERATOR)
+
+    fk_fn, (bk, bv, pk) = flagships.fk_join(N_PROBE, N_BUILD, generator=gen,
+                                            device="cuda")
+
+    def check_fk_dist(name):
+        def check(out):
+            ok, ov, og, counts, _ = out
+            wk, wv, wi, c, _ = oracle_fk_join(bk, bv, pk)
+            expect(counts.tolist() == [c], f"{name}: {counts.tolist()}, {c}")
+            for what, got, want in (("keys", ok[:c].view(torch.int32), wk),
+                                    ("vals", ov[:c], wv),
+                                    ("probe rows", og[:c], wi)):
+                expect_equal(name, what, got, want)
+        return check
+
+    paths[D4] = (lambda: shuffle.join_distributed(bk, bv, pk, mesh=mesh),
+                 check_fk_dist(D4), lambda: fk_fn(bk, bv, pk),
+                 N_PROBE + N_BUILD, RADIX_OPERATOR)
+    paths[D4B] = (lambda: shuffle.join_distributed(
+        bk, bv, pk, mesh=mesh, broadcast_threshold=N_BUILD),
+        check_fk_dist(D4B), lambda: fk_fn(bk, bv, pk), N_PROBE + N_BUILD,
+        RADIX_OPERATOR)
+
+    sk = torch.sort(torch.randint(0, 1 << 20, (N_D_SCAN,), device="cuda",
+                                  generator=gen)).values.to(torch.int32)
+    sk = sk.view(torch.uint32)
+    sv_ = torch.randint(-1000, 1000, (N_D_SCAN,), dtype=torch.int32,
+                        device="cuda", generator=gen)
+
+    def check_d5(out):
+        expect_equal(D5, "running sums", out, oracle_scan_by_key(sk, sv_))
+
+    paths[D5] = (lambda: dscan.scan_by_key_distributed(sk, sv_, mesh=mesh),
+                 check_d5, lambda: rt.scan_by_key(sk, sv_), N_D_SCAN,
+                 ("segmented_scan",))
+
+    xk = (rand_bits(N_D_SELECT, torch.uint32, gen).view(torch.int32)
+          & 0xFFFFFF).view(torch.uint32)  # 2^24 values: duplicates
+    qk = (xk.view(torch.int32) % 50).view(torch.uint32)
+    qv = rand_bits(N_D_SELECT, torch.uint32, gen)
+    qs = (0.25, 0.5, 0.75)
+    k_mid = N_D_SELECT // 2
+
+    def d6():
+        return (dselect.kth_value_distributed(xk, k_mid, mesh=mesh),
+                dselect.top_k_distributed(xk, TOP_K, mesh=mesh),
+                dselect.distinct_distributed(xk, mesh=mesh),
+                dselect.groupby_quantile_distributed(qk, qv, qs, mesh=mesh,
+                                                     max_groups=64))
+
+    def check_d6(out):
+        kth, (tv, ti), (u, uc), (gq, qcols, ng) = out
+        srt = oracle_sorted_bits(xk)
+        expect(int(kth.view(torch.int32)) == int(srt[k_mid]),
+               f"{D6}: kth_value {int(kth)}")
+        wv, wi = oracle_top_k(xk, TOP_K)
+        expect_equal(D6, "top_k values", tv.view(torch.int32), wv)
+        expect_equal(D6, "top_k rows", ti, wi)
+        uniq = torch.unique(u32_to_i64(xk))
+        c = uniq.numel()
+        expect(uc.tolist() == [c], f"{D6}: distinct {uc.tolist()}, {c}")
+        expect_equal(D6, "distinct keys", u[:c].view(torch.int32),
+                     uniq.to(torch.int32))
+        wk, wcols = oracle_group_quantiles(qk, qv, qs)
+        g = wk.numel()
+        expect(int(ng) == g, f"{D6}: {int(ng)} groups, oracle {g}")
+        expect_equal(D6, "quantile groups", gq[:g].view(torch.int32),
+                     wk.to(torch.int32))
+        rel = max(expect_close(D6, f"q{q}", col[:g], w)
+                  for q, col, w in zip(qs, qcols, wcols))
+        log(f"[dist] {D6}: quantiles within {rel} relative of the oracle")
+
+    paths[D6] = (d6, check_d6, lambda: (
+        rt.kth_value(xk, k_mid), rt.top_k(xk, TOP_K), rt.distinct(xk),
+        rt.groupby_quantile(qk, qv, qs)), N_D_SELECT, SORT_KERNELS)
+
+    fsj_fn, fsj_args = flagships.filter_sort_join_query(
+        N_FSJ_PROBE, N_FSJ_BUILD, generator=gen, device="cuda")
+    threshold = flagships.PROBE_VALUE_RANGE // 2
+
+    def check_d7(out):
+        k, pv, bv_, counts, st = out
+        wk, wpv, wbv, c, n_filtered = oracle_fsj(*fsj_args, threshold)
+        expect(counts.tolist() == [c] and int(st.rows_joined) == c
+               and int(st.rows_after_filter) == n_filtered
+               and int(st.rows_in) == N_FSJ_PROBE,
+               f"{D7}: {counts.tolist()} / {tuple(int(s) for s in st)}")
+        for what, got, want in (("keys", k[:c].view(torch.int32), wk),
+                                ("probe values", pv[:c], wpv),
+                                ("build values", bv_[:c], wbv)):
+            expect_equal(D7, what, got, want)
+
+    paths[D7] = (lambda: query.filter_sort_join_distributed(
+        *fsj_args, threshold, mesh=mesh), check_d7,
+        lambda: fsj_fn(*fsj_args), N_FSJ_PROBE + N_FSJ_BUILD, RADIX_OPERATOR)
+
+    orders, parts = query_data(gen)
+    paths[D7Q] = (lambda: readme_query(orders, parts).run(mesh=mesh),
+                  lambda out: check_plan_path(P4, out, (orders, parts),
+                                              oracle_readme),
+                  lambda: readme_query(orders, parts).run(),
+                  N_QUERY + N_QUERY_BUILD, RADIX_OPERATOR)
+    return paths
+
+
+def gloo_rank(rank: int, world: int) -> dict:
+    """One rank of the 4-rank gloo leg (tests/torch_world.py starts it):
+    D1, D3, D4 and D7's plan at 2^24 rows, on CUDA tensors of the one card;
+    each rank checks its block against the oracle, rank 0 the whole. The
+    joins' builds are above the broadcast threshold, so both hash-exchange
+    rows between the ranks."""
+    torch.cuda.set_device(0)
+    load_port()
+    from cuda.radixsort_tpu_torch.parallel import comm, dsort, shuffle
+    from cuda.radixsort_tpu_torch.table import Table
+
+    mesh = dsort.make_mesh(world, device="cuda")
+    ax = comm.Axis(mesh, "x")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    s = N_GLOO // world
+    mine = slice(rank * s, (rank + 1) * s)
+    res = {}
+
+    def timed(name, fn):
+        out = fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res[name] = statistics.median(times)
+        return out
+
+    keys = rand_bits(N_GLOO, torch.uint32, gen)
+    o, counts, _ = timed("D1", lambda: dsort.sort_distributed(
+        keys[mine], mesh=mesh, n=N_GLOO))
+    srt = oracle_sorted_bits(keys)
+    off = int(counts[:rank].sum())
+    c = int(counts[rank])
+    expect(int(counts.sum()) == N_GLOO, f"gloo D1: counts {counts.tolist()}")
+    expect_equal("gloo D1", f"rank {rank}'s keys", o[:c].view(torch.int32),
+                 srt[off:off + c])
+    blocks = comm.all_gather(o, ax)
+    if rank == 0:
+        whole = torch.cat([blocks[d][:int(counts[d])] for d in range(world)])
+        expect_equal("gloo D1", "the reconstruction", whole.view(torch.int32),
+                     srt)
+
+    gk = (rand_bits(N_GLOO, torch.uint32, gen).view(torch.int32)
+          & 0x3FF).view(torch.uint32)
+    gv = torch.randint(-1000, 1000, (N_GLOO,), dtype=torch.int32,
+                       device="cuda", generator=gen)
+    k, v, counts, _ = timed("D3", lambda: shuffle.groupby_distributed(
+        gk[mine], gv[mine], mesh=mesh, n=N_GLOO))
+    wk, ws, _ = oracle_groupby(gk, gv)
+    c = int(counts[rank])
+    at = torch.searchsorted(u32_to_i64(wk.view(torch.uint32)),
+                            u32_to_i64(k[:c]))
+    expect(int(counts.sum()) == wk.numel()
+           and bool((wk[at.clamp_max(wk.numel() - 1)]
+                     == k[:c].view(torch.int32)).all()),
+           f"gloo D3: rank {rank}'s groups are not the oracle's")
+    expect_equal("gloo D3", f"rank {rank}'s sums", v[:c], ws[at])
+
+    n_probe = N_GLOO - N_GLOO_BUILD
+    bk = torch.arange(N_GLOO_BUILD, dtype=torch.int32,
+                      device="cuda").view(torch.uint32)
+    bv = torch.arange(N_GLOO_BUILD, dtype=torch.int32, device="cuda") * 3
+    pk = (torch.randint(0, N_GLOO_BUILD, (n_probe,), dtype=torch.int32,
+                        device="cuda", generator=gen)).view(torch.uint32)
+    sp = n_probe // world
+    ok, ov, og, counts, st = timed("D4", lambda: shuffle.join_distributed(
+        bk, bv, pk[rank * sp:(rank + 1) * sp], mesh=mesh, n=n_probe))
+    c = int(counts[rank])
+    expect(int(counts.sum()) == n_probe, f"gloo D4: {counts.tolist()}")
+    # the hash route sends this rank's build and probe rows to their owners
+    expect(int(st.rows_in[rank]) == sp + N_GLOO_BUILD // world,
+           f"gloo D4: rank {rank} sent {int(st.rows_in[rank])} rows: not "
+           "the hash route")
+    expect(bool((ov[:c] == ok[:c].view(torch.int32) * 3).all())
+           and bool((pk.view(torch.int32)[og[:c].long()]
+                     == ok[:c].view(torch.int32)).all()),
+           f"gloo D4: rank {rank}'s matches are not the oracle's")
+
+    orders = Table({"k": (torch.randint(0, 2 * N_GLOO_BUILD, (n_probe,),
+                                        dtype=torch.int32, device="cuda",
+                                        generator=gen)).view(torch.uint32),
+                    "v": torch.randint(-1000, 1000, (n_probe,),
+                                       dtype=torch.int32, device="cuda",
+                                       generator=gen)})
+    parts = Table({"k": (torch.arange(N_GLOO_BUILD, dtype=torch.int32,
+                                      device="cuda") * 2).view(torch.uint32),
+                   "price": bv})
+    t, cnt, _ = timed("D7", lambda: readme_query(
+        orders.shard(mesh), parts).run(mesh=mesh))
+    wk, ws, c = oracle_readme(orders, parts)
+    expect(int(cnt) == c, f"gloo D7: {int(cnt)} rows, oracle {c}")
+    expect_equal("gloo D7", "keys", t["k"][:c], wk)
+    expect_equal("gloo D7", "sums", t["v"][:c], ws)
+    return res
+
+
+def phase_distributed(gen: torch.Generator, launches: dict) -> dict:
+    """D1-D7 through the public distributed entry points on a one-rank NCCL
+    mesh, each counted, checked and timed beside its single-GPU call; then
+    the 4-rank gloo leg on the same card. Returns the times."""
+    import torch.distributed as dist
+
+    from cuda.radixsort_tpu_torch.parallel import dsort
+    from cuda.radixsort_tpu_torch.utils.profiling import cuda_time_ms
+
+    t_phase = time.perf_counter()
+    store = nccl_world()
+    out_ms = {}
+    try:
+        mesh = dsort.make_mesh(1, device="cuda")
+        paths = dist_paths(gen, mesh)
+        for name in DIST_PATHS:
+            fn, check, single, rows, needs = paths.pop(name)
+            check(run_counted(name, fn, needs, launches))
+            ms = cuda_time_ms(fn, runs=3, warmup=1)
+            single_ms = cuda_time_ms(single, runs=3, warmup=1)
+            out_ms[name] = {"ms": ms, "single_gpu_ms": single_ms,
+                            "rows": rows}
+            log(f"[dist] {name}: == oracle; {ms:.3f} ms = "
+                f"{rows / ms * 1e3:.4g} rows/s, single-GPU call "
+                f"{single_ms:.3f} ms (NCCL, 1 rank)")
+            del fn, check, single
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "torch_world", os.path.join(HERE, "tests", "torch_world.py"))
+    world = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(world)
+    ranks = world.run_world(f"{os.path.abspath(__file__)}:gloo_rank",
+                            GLOO_RANKS, backend="gloo",
+                            timeout=GLOO_TIMEOUT_S, threads=0)
+    gloo = {p: statistics.median(r[p] for r in ranks) for p in ranks[0]}
+    log(f"[dist] 4 ranks over gloo with CUDA tensors, {N_GLOO} rows a path: "
+        "D1 sort, D3 group-by, D4 join (hash), D7 README plan (hash join) "
+        "== oracle "
+        "on every rank; gloo through host memory, median of the ranks' "
+        "medians: " + ", ".join(f"{p} {ms:.1f} ms" for p, ms in gloo.items())
+        + f" (the leg's wall time {time.perf_counter() - t0:.1f} s)")
+    out_ms["gloo_4_ranks_ms"] = gloo
+    log(f"[dist] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out_ms
+
+
 def phase_times(gen: torch.Generator) -> dict:
     import cuda.radixsort_tpu_torch as rt
     from cuda.radixsort_tpu_torch import twiddle
@@ -2195,6 +2696,20 @@ def phase_times(gen: torch.Generator) -> dict:
                                       runs=RUNS)
 
     kernel("hist", lambda: hist.digit_histograms(keys1, n_stages=4, width=8))
+    # the library call: torch.bincount of one 8-bit digit (of the kernel's
+    # four), the digit extracted beforehand and timed apart
+    t["digit_extract_ms"] = cuda_time_ms(
+        lambda: keys1.view(torch.int32) & 255, runs=RUNS)
+    digit = keys1.view(torch.int32) & 255
+    t["bincount_ms"] = cuda_time_ms(
+        lambda: torch.bincount(digit, minlength=256), runs=RUNS)
+    try:  # device_time_ms refuses a call that waits for the host
+        device_time_ms(lambda: torch.bincount(digit, minlength=256),
+                       runs=RUNS)
+        t["bincount_syncs"] = False
+    except RuntimeError:
+        t["bincount_syncs"] = True
+    del digit
     t["hist_plain_ms"] = cuda_time_ms(
         lambda: hist.digit_histograms_plain(keys1, n_stages=4, width=8),
         runs=RUNS)
@@ -2556,6 +3071,50 @@ def _busy_us(events) -> float:
     return busy
 
 
+def profile_path(name: str, fn) -> None:
+    """One call of fn under torch.profiler after a warm-up: device busy
+    time, idle share against the CUDA-event median, time by kernel."""
+    from cuda.radixsort_tpu_torch.utils.profiling import cuda_time_ms
+    from torch.profiler import ProfilerActivity, profile
+
+    wall_ms = cuda_time_ms(fn, runs=RUNS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    expect(events, f"profile {name}: the profiler saw no device event")
+    busy_ms = _busy_us(events) / 1e3
+    by_name: dict[str, list] = {}
+    for e in events:
+        row = by_name.setdefault(e.name, [0.0, 0])
+        row[0] += (e.time_range.end - e.time_range.start) / 1e3
+        row[1] += 1
+    log(f"[profile] {name}: CUDA-event median {wall_ms:.3f} ms, device "
+        f"busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    for ev, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        log(f"[profile]   {ms:9.3f} ms {ms / busy_ms:6.1%} x{count:<3d} {ev[:90]}")
+
+
+def profile_distributed(gen: torch.Generator) -> None:
+    """The D paths under the profiler, on a one-rank NCCL mesh."""
+    import torch.distributed as dist
+
+    from cuda.radixsort_tpu_torch.parallel import dsort
+
+    store = nccl_world()
+    try:
+        paths = dist_paths(gen, dsort.make_mesh(1, device="cuda"))
+        for name in DIST_PATHS:
+            profile_path(name, paths.pop(name)[0])
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+
+
 def phase_profile(gen: torch.Generator) -> None:
     """--profile: where the device time of each path goes (torch.profiler,
     one call after a warm-up), the device's idle share against the call's
@@ -2564,7 +3123,6 @@ def phase_profile(gen: torch.Generator) -> None:
     import cuda.radixsort_tpu_torch as rt
     from cuda.radixsort_tpu_torch import config as config_lib
     from cuda.radixsort_tpu_torch.utils.profiling import cuda_time_ms
-    from torch.profiler import ProfilerActivity, profile
 
     keys1 = rand_bits(N_KEYS, torch.uint32, gen)
     keys2 = rand_bits(N_PAIRS, torch.uint64, gen)
@@ -2581,24 +3139,8 @@ def phase_profile(gen: torch.Generator) -> None:
     ops.update({name: (lambda fn=fn: fn(net))
                 for name, (fn, _, _) in net_paths.items()})
     for name, fn in {**calls, **ops}.items():
-        wall_ms = cuda_time_ms(fn, runs=RUNS)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = _device_events(prof)
-        expect(events, f"profile {name}: the profiler saw no device event")
-        busy_ms = _busy_us(events) / 1e3
-        by_name: dict[str, list] = {}
-        for e in events:
-            row = by_name.setdefault(e.name, [0.0, 0])
-            row[0] += (e.time_range.end - e.time_range.start) / 1e3
-            row[1] += 1
-        log(f"[profile] {name}: CUDA-event median {wall_ms:.3f} ms, device "
-            f"busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-        for ev, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
-            log(f"[profile]   {ms:9.3f} ms {ms / busy_ms:6.1%} x{count:<3d} {ev[:90]}")
+        profile_path(name, fn)
+    profile_distributed(gen)
 
     base = config_lib.preset()
     for name, fn in calls.items():
@@ -2639,6 +3181,10 @@ def main() -> int:
         phase_profile(gen)
     compat_ms = phase_compat(gen, launches)
     external_s = phase_external(gen, launches)
+    dist_launches: dict = {}
+    dist_ms = phase_distributed(gen, dist_launches)
+    for k, c in dist_launches.items():
+        launches[k] = launches.get(k, 0) + c
     t = phase_times(gen)
     ab = phase_ab(gen, parent) if parent else None
 
@@ -2658,6 +3204,10 @@ def main() -> int:
         f"{t['hist_call_ms']:.4f} ms, plain {t['hist_plain_ms']:.4f} ms; "
         f"width 4 {t['hist_w4_ms']:.4f} / {t['hist_w4_call_ms']:.4f} ms, "
         f"width 2 {t['hist_w2_ms']:.4f} / {t['hist_w2_call_ms']:.4f} ms")
+    log(f"[times] torch.bincount of one 8-bit digit of 2^24 keys: "
+        f"{t['bincount_ms']:.4f} ms (the digit made beforehand: "
+        f"{t['digit_extract_ms']:.4f} ms; reads its maximum to the host: "
+        f"{t['bincount_syncs']})")
     log(f"[times] digit_histograms 2^24 width 8 on skewed keys: "
         f"90%-one-key {t['hist_skew90_ms']:.4f} ms, Zipf-like "
         f"{t['hist_zipf_ms']:.4f} ms")
@@ -2733,7 +3283,13 @@ def main() -> int:
          "max_abs_err": errs["digit_histograms"],
          "ms": t["hist_ms"], "plain_ms": t["hist_plain_ms"],
          "bound_ms": hist_bound[0], "bound_by": hist_bound[1],
-         "library_ms": None,
+         "library_ms": t["bincount_ms"],
+         "library_call": "torch.bincount(digit, minlength=256) of one 8-bit "
+                         "digit of the kernel's four, the int32 digit made "
+                         "beforehand (digit_extract_ms)"
+                         + ("; it reads the digits' maximum to the host"
+                            if t["bincount_syncs"] else ""),
+         "digit_extract_ms": t["digit_extract_ms"],
          "ms_per_call": t["hist_call_ms"],
          "ms_width_4": t["hist_w4_ms"], "ms_width_2": t["hist_w2_ms"],
          "ms_skew90": t["hist_skew90_ms"], "ms_zipf": t["hist_zipf_ms"],
@@ -2826,7 +3382,11 @@ def main() -> int:
                                     "oracle": t[name][2]}
                              for name in NET_PATHS},
         "compat_paths_ms": compat_ms,
-        "external_paths_s": external_s}
+        "external_paths_s": external_s,
+        "distributed_paths_ms": dist_ms,
+        "sort_2_31_ms": TIMES_2_31["sort_ms"]}
+    for k in record["kernels"]:
+        k["launches_distributed"] = dist_launches.get(k["name"], 0)
     if ab is not None:
         record["parent_ab"] = ab
     log(smi)

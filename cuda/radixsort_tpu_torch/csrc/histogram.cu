@@ -143,12 +143,12 @@ __device__ __forceinline__ void count_limb(const Limb& limb, int64_t n,
 // zero at launch and left zero.
 __global__ void __launch_bounds__(kThreads, 1)
     hist_kernel(const __grid_constant__ LimbSet set, int64_t n, int width,
-                int table_bins, int* __restrict__ scratch,
-                int* __restrict__ out) {
+                int table_bins, unsigned* __restrict__ scratch,
+                unsigned* __restrict__ out) {
   extern __shared__ int s_hist[];  // [table_bins][32 lanes]
   __shared__ bool s_last;
   const int tid = threadIdx.x;
-  int* acc = scratch + 1;
+  unsigned* acc = scratch + 1;  // counts up to 2^31 (n <= 2^31): u32
   for (int g = 0; g < set.n;) {
     int e = g + 1;
     while (e < set.n && !set.limb[e].group_first) ++e;
@@ -162,8 +162,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                  s_hist + ((set.limb[l].acc_offset - g_off) << 5));
     __syncthreads();
     for (int j = tid; j < g_bins; j += blockDim.x) {
-      int sum = 0;  // columns in an order skewed by bin: no bank conflicts
-      for (int c = 0; c < 32; ++c) sum += s_hist[(j << 5) + ((c + j) & 31)];
+      unsigned sum = 0;  // columns in an order skewed by bin: no conflicts
+      for (int c = 0; c < 32; ++c)
+        sum += (unsigned)s_hist[(j << 5) + ((c + j) & 31)];
       if (sum) atomicAdd(&acc[g_off + j], sum);
     }
     __syncthreads();
@@ -172,7 +173,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __threadfence();  // this block's sums before its ticket
   __syncthreads();
   if (tid == 0)
-    s_last = atomicAdd((unsigned*)scratch, 1u) == gridDim.x - 1;
+    s_last = atomicAdd(scratch, 1u) == gridDim.x - 1;
   __syncthreads();
   if (!s_last) return;
   __threadfence();
@@ -182,9 +183,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int nb = 1 << width;
   for (int l = 0; l < set.n; ++l) {
     const Limb& limb = set.limb[l];
-    int* bytes = acc + limb.acc_offset;
+    unsigned* bytes = acc + limb.acc_offset;
     for (int j = tid; j < (limb.n_bytes << 8); j += blockDim.x) {
-      s_hist[j] = __ldcg(bytes + j);
+      s_hist[j] = (int)__ldcg(bytes + j);
       bytes[j] = 0;
     }
     __syncthreads();
@@ -192,15 +193,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int bit = (j >> width) * width, b = j & (nb - 1);
       const int lo = bit & 7;  // the stage's offset in its byte
       const int* row = s_hist + ((bit >> 3) << 8);
-      int sum = 0;
+      unsigned sum = 0;
       for (int hi = 0; hi < (256 >> (lo + width)); ++hi)
         for (int v = 0; v < (1 << lo); ++v)
-          sum += row[(hi << (lo + width)) | (b << lo) | v];
+          sum += (unsigned)row[(hi << (lo + width)) | (b << lo) | v];
       out[limb.out_offset + j] = sum;
     }
     __syncthreads();
   }
-  if (tid == 0) *(unsigned*)scratch = 0u;
+  if (tid == 0) *scratch = 0u;
 }
 
 }  // namespace
@@ -211,11 +212,11 @@ extern "C" const char* rs_error_string(int err) {
 
 // keys: host array of n_limbs device pointers (n u32 each, 4-B aligned);
 // masks, n_stages: host arrays, one per limb (1 <= n_stages, n_stages *
-// width <= 32). out: sum(n_stages) * 2^width int32, limb by limb, written
-// whole. A limb counts 256 bins for each of its ceil(n_stages * width / 8)
+// width <= 32). out: sum(n_stages) * 2^width u32 counts (n <= 2^31, so a
+// count of 2^31 fits), limb by limb, written whole. A limb counts 256 bins for each of its ceil(n_stages * width / 8)
 // bytes; limbs are counted in groups of at most table_bins bins, a block's
 // table in shared memory holding table_bins x 32 ints. scratch: 1 + the
-// limbs' byte bins, int32, zero before the first launch on its stream;
+// limbs' byte bins, u32, zero before the first launch on its stream;
 // every launch leaves it zero. threads: kThreads.
 extern "C" int rs_limb_histograms(const void* keys, const void* masks,
                                   const void* n_stages, int n_limbs,
@@ -253,6 +254,6 @@ extern "C" int rs_limb_histograms(const void* keys, const void* masks,
     if (err != cudaSuccess) return (int)err;
   }
   hist_kernel<<<grid, threads, smem, s>>>(set, n, width, table_bins,
-                                          (int*)scratch, (int*)out);
+                                          (unsigned*)scratch, (unsigned*)out);
   return (int)cudaGetLastError();
 }

@@ -110,7 +110,7 @@ __device__ __forceinline__ void store_status(unsigned long long* p,
 template <int ITEMS>
 __global__ void __launch_bounds__(kMaxThreads, ITEMS <= 16 ? 2 : 1)
     stage_onesweep(const uint32_t* __restrict__ keys, Planes p, int64_t n,
-                   int shift, int nb, const int* __restrict__ gbase,
+                   int shift, int nb, const uint32_t* __restrict__ gbase,
                    unsigned long long* status, bool lookback) {
   // the caller sizes shared memory (kernels/stage.py::stage_smem_bytes)
   extern __shared__ unsigned long long smem[];
@@ -251,7 +251,7 @@ __global__ void __launch_bounds__(kMaxThreads, ITEMS <= 16 ? 2 : 1)
     } else {
       excl = (long long)(load_status(&tiles[t * nb + d]) & kValue) - s_cnt[d];
     }
-    s_goff[d] = (int64_t)gbase[d] + excl - s_dstart[d];
+    s_goff[d] = (int64_t)gbase[d] + excl - s_dstart[d];  // bases up to 2^31
   }
   __syncthreads();
 
@@ -275,7 +275,7 @@ __global__ void __launch_bounds__(kMaxThreads, ITEMS <= 16 ? 2 : 1)
 
 template <int ITEMS>
 cudaError_t launch(const uint32_t* keys, const Planes& p, int64_t n,
-                   int shift, int nb, const int* gbase,
+                   int shift, int nb, const uint32_t* gbase,
                    unsigned long long* status, bool lookback, int threads,
                    int64_t n_tiles, size_t smem, cudaStream_t s) {
   if (smem > 48 * 1024) {
@@ -301,8 +301,8 @@ cudaError_t launch_items(int items, Args... args) {
 }  // namespace
 
 // in_planes / out_planes: host arrays of n_planes device pointers (u32, n
-// each); plane 0 holds the keys. gbase: 2^width int32 exclusive bucket
-// bases. status: 1 + n_tiles * 2^width 64-bit words of scratch, zeroed here
+// each); plane 0 holds the keys. gbase: 2^width u32 exclusive bucket
+// bases (up to 2^31: n <= 2^31). status: 1 + n_tiles * 2^width 64-bit words of scratch, zeroed here
 // (one memset per pass). threads: a multiple of 32 up to
 // RS_MAX_STAGE_THREADS; items: keys per thread, one of RS_STAGE_ITEMS.
 // smem: a block's dynamic shared memory, bytes
@@ -337,8 +337,8 @@ extern "C" int rs_partition_stage(const void* in_planes, const void* out_planes,
     }
     const bool first = g == 0;
     err = launch_items<RS_STAGE_ITEMS>(items, keys, p, n, shift, nb,
-                                       (const int*)gbase, st, first, threads,
-                                       n_tiles, (size_t)smem, s);
+                                       (const uint32_t*)gbase, st, first,
+                                       threads, n_tiles, (size_t)smem, s);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

@@ -169,7 +169,8 @@ def limb_histograms(limbs, limb_bits, width: int) -> torch.Tensor:
     (begin, end), the bits of limb k that take part in the order. Returns
     (sum of n_stages, 2^width) int32: limb by limb, ceil(end / width) rows
     each (none for begin >= end), row s the digit counts of stage s of the
-    limb masked as :func:`limb_stages` says."""
+    limb masked as :func:`limb_stages` says. The counts are u32 bits (a
+    digit of 2^31 keys reads negative as int32; :func:`counts64`)."""
     if limbs and limbs[0].device.type == "cpu":
         return limb_histograms_plain(limbs, limb_bits, width)
     _check_limbs(limbs, limb_bits, width)
@@ -197,6 +198,15 @@ def digit_histograms(keys: torch.Tensor, *, n_stages: int = 8,
     return _launch([keys.reshape(-1)], [0xFFFFFFFF], [n_stages], width)
 
 
+def counts64(hist: torch.Tensor) -> torch.Tensor:
+    """The counts of an int32 histogram as int64. The kernel counts in u32
+    (a sort takes up to 2^31 rows, so one digit can count 2^31, which reads
+    negative as int32)."""
+    return hist.to(torch.int64) & 0xFFFFFFFF
+
+
 def stage_bases(hist: torch.Tensor) -> torch.Tensor:
-    """(n_stages, 2^width) histograms -> exclusive bucket bases per stage."""
-    return (torch.cumsum(hist, dim=1) - hist).to(torch.int32)
+    """(n_stages, 2^width) histograms -> exclusive bucket bases per stage,
+    as int32 holding u32 bits (a base can be 2^31)."""
+    h = counts64(hist)
+    return (torch.cumsum(h, dim=1) - h).to(torch.int32)

@@ -58,7 +58,8 @@ def sort_limbs(limbs, limb_bits, payloads, cfg):
     # the identity and is skipped (CUB's dispatch copy shortcut)
     hist = hist_lib.limb_histograms(limbs, limb_bits, width)
     bases = hist_lib.stage_bases(hist)
-    hist_max = hist.max(dim=1).values.tolist() if hist.shape[0] else []
+    hist_max = (hist_lib.counts64(hist).max(dim=1).values.tolist()
+                if hist.shape[0] else [])
     ranges = hist_lib.limb_stages(limb_bits, width)  # (mask, n_stages)
     first_row = [sum(st for _, st in ranges[:k]) for k in range(len(ranges))]
 

@@ -82,7 +82,7 @@ def partition_stage_plain(planes, gbase, *, shift: int, width: int = 4,
     ds = d[order]
     counts = torch.bincount(d, minlength=1 << width)
     starts = torch.cumsum(counts, 0) - counts
-    dest = (gbase.to(torch.int64)[ds] - starts[ds]
+    dest = ((gbase.to(torch.int64) & 0xFFFFFFFF)[ds] - starts[ds]
             + torch.arange(n, device=d.device))
     if out is None:
         out = [torch.empty_like(p) for p in planes]

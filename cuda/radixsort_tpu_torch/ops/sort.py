@@ -28,17 +28,20 @@ from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.kernels import bitonic as kbitonic
 from cuda.radixsort_tpu_torch.kernels import pipeline as kpipe
 
-# Digit counts and bucket bases are int32, as in the JAX reference, so a
-# bucket must hold fewer than 2^31 keys; lifting the limit is later work.
-_DEVICE_MAX_N = (1 << 31) - 1
+# Rows are indexed in int32 (index payloads); digit counts and bucket bases
+# are u32 (one digit of 2^31 keys counts 2^31). Past 2^31 rows is the
+# out-of-core domain (ops/external.py), as in the JAX reference.
+_DEVICE_MAX_N = 1 << 31
 
 _FLOATS = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 
 
 def _check_device_n(n: int) -> None:
     if n > _DEVICE_MAX_N:
-        raise ValueError(f"device sort paths are limited to {_DEVICE_MAX_N} "
-                         f"rows; got {n}")
+        raise ValueError(
+            f"device sort paths are int32-indexed (max {_DEVICE_MAX_N} "
+            f"rows); got {n}. Use ops.external.sort_external / "
+            "sort_external_pairs for out-of-core sizes.")
 
 
 def _check_1d(name: str, t: torch.Tensor, n: int, device) -> None:

@@ -18,13 +18,19 @@ position, never by a sentinel key.
 
 Counts stay 0-d int32 tensors on the device between stages; the plan adds
 no host sync of its own unless ``run(timed=True)``. Every stage's count
-lands in ``stats``. ``run(mesh=...)`` waits for the distributed layer
-(ROADMAP A.11).
+lands in ``stats``.
+
+``run(mesh=...)`` runs the whole plan on every rank over its block of a
+sharded source table (``Table.shard``; a full table is sharded first):
+filters stay local, joins probe a replicated build side (or hash-localise
+a large one), group-bys are two-phase (``parallel/shuffle.py``), and
+``order_by`` / ``limit`` gather the running result to every rank.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -33,11 +39,13 @@ from cuda.radixsort_tpu_torch import config as config_lib
 from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.ops.aggregate import (groupby, groupby_multi,
                                                     groupby_quantile)
+from cuda.radixsort_tpu_torch.ops.filter import filter_columns
 from cuda.radixsort_tpu_torch.ops.join import _HOWS
 from cuda.radixsort_tpu_torch.ops.join import join as join_op
 from cuda.radixsort_tpu_torch.ops.sort import sort_struct
 from cuda.radixsort_tpu_torch.ops.window import window_table
-from cuda.radixsort_tpu_torch.table import Table
+from cuda.radixsort_tpu_torch.parallel.shuffle import JOIN_BROADCAST_ROWS
+from cuda.radixsort_tpu_torch.table import Table, _sharded
 
 
 class _Stage(NamedTuple):
@@ -205,12 +213,18 @@ class Query:
         count, stats): rows [0, count) of every column are the result;
         stats maps "i:op" to the 0-d count after stage i. timed=True also
         records each stage's wall-clock time as "i:op:ms", waiting for the
-        device after each stage (for profiling: it syncs with the host)."""
+        device after each stage (for profiling: it syncs with the host).
+
+        Distributed (mesh=..., a DeviceMesh; every rank runs the same
+        plan): returns this rank's (table, counts, stats). While the
+        result is sharded, rank d's rows [0, counts[d]) are valid and
+        counts is (ndev,); once an order_by/limit has gathered, the table
+        and the 0-d count are the same on every rank. stats values are
+        global row counts."""
         if mesh is not None:
-            raise NotImplementedError(
-                "Query.run(mesh=...) is distributed work, not ported yet "
-                "(ROADMAP A.11)")
+            return _run_distributed(self, mesh, axis_name, config)
         t = self._source
+        t._whole("Query.run without mesh=")
         count = torch.as_tensor(t.num_rows if self._count is None
                                 else self._count, dtype=torch.int32,
                                 device=t.device)
@@ -410,3 +424,335 @@ _EXEC = {
     "order_by": _exec_order_by,
     "limit": _exec_limit,
 }
+
+
+# ---------------------------------------------------------------------------
+# distributed execution: the whole plan on every rank's block
+# ---------------------------------------------------------------------------
+
+# build tables above this row count are hash-localised instead of probed
+# replicated
+_JOIN_BROADCAST_ROWS = JOIN_BROADCAST_ROWS
+
+_AUTO_QUANTILE_GROUPS = 64
+
+# an order_by/limit gather that replicates more than this many bytes per
+# rank warns: order a large table with parallel.dsort instead
+_GATHER_WARN_BYTES = 256 << 20
+
+
+def _auto_route_quantiles(stages, src, n, mesh, axis_name):
+    """Fill in a missing ``max_groups`` hint of a quantiles stage when
+    every stage before it only filters rows or adds or projects columns,
+    its key and value columns are unrewritten source columns of at most 32
+    bits, and a capped distinct count of the source key column proves at
+    most 64 groups: the stage then refines histograms (no row moves)."""
+    from cuda.radixsort_tpu_torch.parallel.dselect import (
+        distinct_count_capped)
+
+    out = []
+    safe = True
+    rewritten: set = set()
+    for st in stages:
+        if st.op == "quantiles" and st.args[4] is None and safe:
+            key, value, qs, names, _ = st.args
+            if (key in src.column_names and value in src.column_names
+                    and key not in rewritten and value not in rewritten
+                    and twiddle.bit_width(src[key].dtype) <= 32
+                    and twiddle.bit_width(src[value].dtype) <= 32):
+                ng = int(distinct_count_capped(
+                    src[key], cap=_AUTO_QUANTILE_GROUPS, mesh=mesh,
+                    axis_name=axis_name, n=n))
+                if ng <= _AUTO_QUANTILE_GROUPS:
+                    st = _Stage("quantiles", (key, value, qs, names,
+                                              _AUTO_QUANTILE_GROUPS),
+                                st.kwargs)
+        if st.op == "with_column":
+            rewritten.add(st.args[0])
+        elif st.op not in ("where", "select"):
+            safe = False
+        out.append(st)
+    return out
+
+
+def _run_distributed(q: Query, mesh, axis_name, config):
+    from cuda.radixsort_tpu_torch.parallel import comm
+    from cuda.radixsort_tpu_torch.parallel.dsort import _gather_counts
+
+    ax = comm.Axis(mesh, axis_name)
+    ndev = ax.size
+    src, n = _sharded(q._source, mesh, axis_name)
+    s = src.num_rows
+    cols = _cols(src)
+    plan_stages = _auto_route_quantiles(q._stages, src, n, mesh, axis_name)
+    cnt = torch.tensor(min(max(n - ax.index * s, 0), s), dtype=torch.int32,
+                       device=src.device)
+    rep = False  # True once a stage gathered to a replicated view
+    stats: dict[str, Any] = {}
+    for i, st in enumerate(plan_stages):
+        if st.op == "join":
+            # two reasons to hash-localise instead of probing the whole
+            # build: outer joins (right/full) must emit each unmatched
+            # build row once, and a large build is better dealt to its
+            # hash owners
+            st.args[0]._whole("a distributed plan's join build")
+            bt = _cols(st.args[0])
+            nbuild = st.args[0].num_rows
+            if not rep and (st.args[4] in ("right", "full")
+                            or nbuild > _JOIN_BROADCAST_ROWS):
+                cols, cnt = _dist_join_hash(cols, cnt, st, bt, ax, mesh,
+                                            axis_name, config)
+            else:
+                cols, cnt = _join_impl(cols, cnt, st, bt, config)
+        elif rep or st.op in ("select", "with_column"):
+            t2, cnt = _EXEC[st.op](Table(cols), cnt, st, config)
+            cols = _cols(t2)
+        elif st.op == "where":
+            cols, cnt = _dist_where(cols, cnt, st.args[0], config)
+        elif st.op == "groupby":
+            cols, cnt = _dist_groupby(cols, cnt, st, ax, mesh, axis_name,
+                                      config)
+        elif st.op == "groupby_agg":
+            cols, cnt = _dist_groupby_agg(cols, cnt, st, ax, mesh, axis_name,
+                                          config)
+        elif st.op == "quantiles":
+            cols, cnt = _dist_quantiles(cols, cnt, st, ax, mesh, axis_name,
+                                        config)
+        elif st.op == "distinct":
+            cols, cnt = _dist_distinct(cols, cnt, st, ax, mesh, axis_name,
+                                       config)
+        elif st.op == "window":
+            cols, cnt = _dist_window(cols, cnt, st, ax, mesh, axis_name,
+                                     config)
+        elif st.op in ("order_by", "limit"):
+            if not rep:
+                cols, cnt = _dist_gather(cols, cnt, ax)
+                rep = True
+            t2, cnt = _EXEC[st.op](Table(cols), cnt, st, config)
+            cols = _cols(t2)
+        stats[f"{i}:{st.op}"] = cnt if rep else comm.psum(cnt, ax)
+    if rep:
+        return Table(cols), cnt, stats
+    return (Table(cols, global_rows=_rows(cols) * ndev),
+            _gather_counts(cnt, mesh, axis_name), stats)
+
+
+def _rows(cols) -> int:
+    return next(iter(cols.values())).shape[0]
+
+
+def _first_rows(x: torch.Tensor, cnt) -> torch.Tensor:
+    """True for rows [0, cnt) of x."""
+    return torch.arange(x.shape[0], dtype=torch.int32, device=x.device) < cnt
+
+
+def _prefix(cols, cnt) -> torch.Tensor:
+    return _first_rows(next(iter(cols.values())), cnt)
+
+
+def _dist_where(cols, cnt, pred, config):
+    """Shard-local stable compaction by pred & positional validity."""
+    mask = pred(Table(cols)) & _prefix(cols, cnt)
+    return filter_columns(mask, cols)
+
+
+def _exchange_by(cols, names, dest, ax, mesh, axis_name):
+    """Exchange the named columns' rows to dest; (received cols, valid)."""
+    from cuda.radixsort_tpu_torch.parallel.shuffle import exchange_rows
+
+    recv, rvalid = exchange_rows([cols[k] for k in names], dest, ax.size,
+                                 axis_name, _rows(cols), mesh=mesh)
+    return dict(zip(names, recv)), rvalid
+
+
+def _dist_groupby(cols, cnt, st, ax, mesh, axis_name, config):
+    """The single-key group-by as the multi form with one key and one
+    aggregate; a median cannot travel as a partial, so its raw rows
+    hash-exchange and each group's values land on one rank."""
+    from cuda.radixsort_tpu_torch.parallel.shuffle import _owner_of_keys
+
+    key, value, agg = st.args
+    out_name = value if value != key else agg
+    if agg == "median":
+        dest = torch.where(_prefix(cols, cnt),
+                           _owner_of_keys(cols[key], ax.size), ax.size)
+        recv, rvalid = _exchange_by(cols, list(dict.fromkeys((key, value))),
+                                    dest, ax, mesh, axis_name)
+        gk, gv, c2 = groupby(recv[key], recv[value], agg="median",
+                             valid=rvalid, config=config)
+        return {key: gk, out_name: gv}, c2
+    st2 = _Stage("groupby_agg", ((key,), ((out_name, value, agg),)), {})
+    return _dist_groupby_agg(cols, cnt, st2, ax, mesh, axis_name, config)
+
+
+def _dist_join_hash(cols, cnt, st, build, ax, mesh, axis_name, config):
+    """Hash-localised join: probe rows hash-exchange and each rank keeps
+    the build rows it owns, so every key lives on one rank and the local
+    join is right for every ``how``."""
+    from cuda.radixsort_tpu_torch.parallel.shuffle import _owner_of_key_tuple
+
+    _, on, value, build_count, how = st.args
+    on_cols = on if isinstance(on, tuple) else (on,)
+    dev = cnt.device
+
+    def owner(table_cols):
+        return _owner_of_key_tuple([table_cols[k] for k in on_cols], ax.size)
+
+    dest = torch.where(_prefix(cols, cnt), owner(cols), ax.size)
+    recv, rvalid = _exchange_by(cols, list(cols), dest, ax, mesh, axis_name)
+    rcols, rcnt = filter_columns(rvalid, recv)
+    nb = build[on_cols[0]].shape[0]
+    mine = owner(build) == ax.index
+    if build_count is not None:
+        mine = mine & (torch.arange(nb, dtype=torch.int32, device=dev)
+                       < torch.as_tensor(build_count, dtype=torch.int32,
+                                         device=dev))
+    blocal, bcnt = filter_columns(mine, build)
+    st2 = _Stage("join", (None, on, value, bcnt, how), {})
+    return _join_impl(rcols, rcnt, st2, blocal, config)
+
+
+def _dist_quantiles(cols, cnt, st, ax, mesh, axis_name, config):
+    """Quantiles cannot travel as partials: the raw (key, value) rows
+    hash-exchange. With a ``max_groups`` hint no row moves: histogram
+    refinement resolves every (group, q) target, and the replicated result
+    is dealt round-robin over the ranks."""
+    from cuda.radixsort_tpu_torch.parallel.dselect import (
+        quantile_refine_shard)
+    from cuda.radixsort_tpu_torch.parallel.dsort import _keys_of_bits, _bits_of
+    from cuda.radixsort_tpu_torch.parallel.shuffle import _owner_of_keys
+
+    key, value, qs, names, max_groups = st.args
+    valid0 = _prefix(cols, cnt)
+    if max_groups is not None:
+        if (twiddle.bit_width(cols[key].dtype) > 32
+                or twiddle.bit_width(cols[value].dtype) > 32):
+            raise NotImplementedError(
+                "quantiles max_groups hint: <=32-bit key/value dtypes")
+        gkb, qstack, n_groups = quantile_refine_shard(
+            _bits_of(cols[key]), _bits_of(cols[value]), valid0, qs, max_groups,
+            cols[value].dtype, axis_name, mesh=mesh)
+        gk = _keys_of_bits(gkb, cols[key].dtype, False)
+        slot = torch.arange(max_groups, dtype=torch.int32, device=cnt.device)
+        mine = ((slot % ax.size) == ax.index) & (
+            slot < torch.clamp_max(n_groups, max_groups))
+        out = {key: gk}
+        out.update(zip(names, qstack))
+        return filter_columns(mine, out)
+    dest = torch.where(valid0, _owner_of_keys(cols[key], ax.size), ax.size)
+    recv, rvalid = _exchange_by(cols, list(dict.fromkeys((key, value))),
+                                dest, ax, mesh, axis_name)
+    gk, qcols, c2 = groupby_quantile(recv[key], recv[value], qs, valid=rvalid,
+                                     config=config)
+    out = {key: gk}
+    out.update(zip(names, qcols))
+    return out, c2
+
+
+def _dist_distinct(cols, cnt, st, ax, mesh, axis_name, config):
+    """Two-phase dedup: local distinct, hash-of-key-tuple exchange of the
+    survivors, final distinct per rank."""
+    from cuda.radixsort_tpu_torch.parallel.shuffle import (
+        _owner_of_key_tuple, exchange_rows)
+
+    keys = st.args[0] or tuple(sorted(cols))
+    kc, _, c1 = groupby_multi(tuple(cols[k] for k in keys), (), (),
+                              valid=_prefix(cols, cnt), config=config)
+    dest = torch.where(_first_rows(kc[0], c1),
+                       _owner_of_key_tuple(kc, ax.size), ax.size)
+    recv, rvalid = exchange_rows(list(kc), dest, ax.size, axis_name,
+                                 kc[0].shape[0], mesh=mesh)
+    k2, _, c2 = groupby_multi(tuple(recv), (), (), valid=rvalid,
+                              config=config)
+    return dict(zip(keys, k2)), c2
+
+
+def _dist_window(cols, cnt, st, ax, mesh, axis_name, config):
+    """Whole rows hash-exchange by partition key (every partition lands on
+    one rank), then the single-GPU window runs per rank."""
+    from cuda.radixsort_tpu_torch.parallel.shuffle import _owner_of_keys
+
+    part, okey, spec, desc = st.args
+    dest = torch.where(_prefix(cols, cnt),
+                       _owner_of_keys(cols[part], ax.size), ax.size)
+    recv, rvalid = _exchange_by(cols, list(cols), dest, ax, mesh, axis_name)
+    return window_table(recv, part, okey, spec, valid=rvalid,
+                        descending=desc, config=config)
+
+
+def _dist_groupby_agg(cols, cnt, st, ax, mesh, axis_name, config):
+    """Two-phase multi-key multi-aggregate group-by: local partials, a
+    hash-of-key-tuple exchange, a final re-aggregation. A count partial
+    re-reduces as a sum, a mean travels as (sum, count), var/std as (sum,
+    sum of squares, count), each assembled after the final phase; a median
+    moves the raw rows instead."""
+    from cuda.radixsort_tpu_torch.ops.aggregate import (_mean_dtype,
+                                                        _moments_to_var)
+    from cuda.radixsort_tpu_torch.parallel.shuffle import (
+        _owner_of_key_tuple, exchange_rows)
+
+    keys, aggs = st.args
+    if any(a == "median" for _, _, a in aggs):
+        dest = torch.where(_prefix(cols, cnt), _owner_of_key_tuple(
+            [cols[k] for k in keys], ax.size), ax.size)
+        need = list(dict.fromkeys(list(keys) + [v for _, v, _ in aggs]))
+        recv, rvalid = _exchange_by(cols, need, dest, ax, mesh, axis_name)
+        return _groupby_agg_cols(recv, keys, aggs, rvalid, config)
+    part_arrays, part_aggs, assemble = [], [], []
+    for n_, v, a in aggs:
+        col = cols[v]
+        i = len(part_arrays)
+        if a == "mean":
+            assemble.append((n_, a, (i, i + 1), col.dtype))
+            part_arrays += [col, col]
+            part_aggs += ["sum", "count"]
+        elif a in ("var", "std"):
+            md = _mean_dtype(col.dtype)
+            assemble.append((n_, a, (i, i + 1, i + 2), col.dtype))
+            part_arrays += [col, col.to(md) * col.to(md), col]
+            part_aggs += ["sum", "sum", "count"]
+        else:
+            assemble.append((n_, a, (i,), None))
+            part_arrays.append(col)
+            part_aggs.append(a)
+    kc, vc, c1 = groupby_multi(tuple(cols[k] for k in keys),
+                               tuple(part_arrays), tuple(part_aggs),
+                               valid=_prefix(cols, cnt), config=config)
+    dest = torch.where(_first_rows(kc[0], c1),
+                       _owner_of_key_tuple(kc, ax.size), ax.size)
+    recv, rvalid = exchange_rows(list(kc) + list(vc), dest, ax.size,
+                                 axis_name, kc[0].shape[0], mesh=mesh)
+    nk = len(keys)
+    re_aggs = tuple("sum" if a == "count" else a for a in part_aggs)
+    k2, v2, c2 = groupby_multi(tuple(recv[:nk]), tuple(recv[nk:]), re_aggs,
+                               valid=rvalid, config=config)
+    out = dict(zip(keys, k2))
+    for n_, a, idx, vdtype in assemble:
+        if a == "mean":
+            md = _mean_dtype(vdtype)
+            out[n_] = v2[idx[0]].to(md) / v2[idx[1]].to(md)
+        elif a in ("var", "std"):
+            out[n_] = _moments_to_var(v2[idx[0]], v2[idx[1]], v2[idx[2]], a,
+                                      vdtype)
+        else:
+            out[n_] = v2[idx[0]]
+    return out, c2
+
+
+def _dist_gather(cols, cnt, ax):
+    """Gather the sharded running result to a replicated, compacted view
+    (order_by/limit need the global view; meant for small, aggregated
+    results)."""
+    from cuda.radixsort_tpu_torch.parallel import comm
+
+    gathered = _rows(cols) * sum(v.dtype.itemsize for v in cols.values())
+    if gathered > _GATHER_WARN_BYTES:
+        warnings.warn(
+            f"distributed plan order_by/limit gathers ~{gathered >> 20}"
+            " MiB per shard to EVERY device (replicated view); order large"
+            " tables with parallel.dsort before the plan, or move order_by"
+            " after the aggregation", stacklevel=3)
+    gvalid = comm.all_gather(_prefix(cols, cnt), ax, tiled=True)
+    gcols = {k: comm.all_gather(v, ax, tiled=True) for k, v in cols.items()}
+    out, _ = filter_columns(gvalid, gcols)
+    return out, comm.psum(cnt, ax)

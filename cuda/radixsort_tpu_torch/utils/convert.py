@@ -95,3 +95,18 @@ def config_from_jax(cfg) -> config_lib.SortConfig:
     width = 2 if rb <= 3 else (4 if rb <= 7 else 8)
     return config_lib.preset((9, 0)).replace(radix_bits=width,
                                               engine=_ENGINE_OF[cfg.engine])
+
+
+def blocks(x, ndev: int) -> list:
+    """A global array sharded over ``ndev`` devices along its first axis
+    (a JAX ``shard_map`` output, say) -> the ``ndev`` per-device blocks as
+    numpy arrays, the blocks the port's ranks return."""
+    a = np.asarray(x)
+    return list(a.reshape((ndev, -1) + a.shape[1:]))
+
+
+def stats_to_numpy(st) -> dict:
+    """An ExchangeStats of either package (any NamedTuple of arrays or
+    tensors) -> {field: numpy array}."""
+    return {k: (to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v))
+            for k, v in st._asdict().items()}

@@ -42,6 +42,12 @@ def test_imports_with_jax_blocked():
             "cuda.radixsort_tpu_torch.ops.comparator_sort, "
             "cuda.radixsort_tpu_torch.ops.external, "
             "cuda.radixsort_tpu_torch.utils.native, "
+            "cuda.radixsort_tpu_torch.parallel.comm, "
+            "cuda.radixsort_tpu_torch.parallel.stats, "
+            "cuda.radixsort_tpu_torch.parallel.dsort, "
+            "cuda.radixsort_tpu_torch.parallel.shuffle, "
+            "cuda.radixsort_tpu_torch.parallel.dscan, "
+            "cuda.radixsort_tpu_torch.parallel.dselect, "
             "cuda.radixsort_tpu_torch.__main__; "
             "import torch; "
             "net = rt.SortConfig(engine='bitonic'); "
@@ -58,6 +64,8 @@ def test_no_source_file_names_jax():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)", re.M)
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 14
+    assert {"comm.py", "stats.py", "dsort.py", "shuffle.py", "dscan.py",
+            "dselect.py"} <= {p.name for p in PKG.glob("parallel/*.py")}
     for path in files:
         assert not pattern.search(path.read_text()), path
 

@@ -165,8 +165,6 @@ def test_plan_errors():
         q.quantiles("k", "f", (0.5,), names=("k",))
     with pytest.raises(ValueError):
         q.order_by()
-    with pytest.raises(NotImplementedError, match="A.11"):
-        q.run(mesh=object())
     left = q.join(tparts, on="k", value="price", how="left")
     with pytest.raises(ValueError, match="matched"):
         left.join(tparts, on="k", value="price", how="left").run()

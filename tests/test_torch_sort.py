@@ -248,8 +248,9 @@ def test_rejects_mismatched_values():
         rt.sort(keys.reshape(2, 5))
     with pytest.raises(ValueError):
         rt.sort(keys, begin_bit=4, end_bit=40)
-    huge = torch.zeros(1, dtype=torch.uint8).expand(1 << 31)  # no memory
-    with pytest.raises(ValueError, match="limited"):
+    # 2^31 rows are a device sort; one more is not (no memory is touched)
+    huge = torch.zeros(1, dtype=torch.uint8).expand((1 << 31) + 1)
+    with pytest.raises(ValueError, match="int32-indexed"):
         rt.sort(huge)
 
 
@@ -281,3 +282,30 @@ def test_u64_pipeline_one_histogram_per_sort(begin, end, descending,
     _eq(tk, np.asarray(jk))
     _eq(ti, np.asarray(ji))
     assert len(calls) == 1 and len(calls[0]) == 2, calls
+
+
+def test_device_row_limit_matches_the_reference():
+    # 2^31 rows sort on the device (one digit can count 2^31: the kernels
+    # count and place in u32); one more is out-of-core work, as in JAX
+    from cuda.radixsort_tpu.ops.sort import _check_device_n as jcheck
+    from cuda.radixsort_tpu_torch.ops.sort import _check_device_n
+
+    for n in (2**31 - 1, 2**31):
+        _check_device_n(n)
+        jcheck(n)
+    for check in (_check_device_n, jcheck):
+        with pytest.raises(ValueError, match="int32-indexed"):
+            check(2**31 + 1)
+
+
+def test_u32_counts_and_bases_of_a_full_digit():
+    # a digit that counts 2^31 keys: its int32 bits read back as 2^31, and
+    # the bases after it are 2^31 (u32 bits in the int32 tensor)
+    from cuda.radixsort_tpu_torch.kernels import histogram as khist
+
+    hist = torch.zeros((1, 4), dtype=torch.int32)
+    hist[0, 1] = -(1 << 31)  # the u32 count 2^31
+    assert khist.counts64(hist).tolist() == [[0, 1 << 31, 0, 0]]
+    bases = khist.stage_bases(hist)
+    assert (bases.to(torch.int64) & 0xFFFFFFFF).tolist() == [
+        [0, 0, 1 << 31, 1 << 31]]

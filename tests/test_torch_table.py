@@ -10,8 +10,7 @@ import torch
 import cuda.radixsort_tpu as rs
 from cuda.radixsort_tpu.table import concat_tables as j_concat
 import cuda.radixsort_tpu_torch as rt
-from cuda.radixsort_tpu_torch.table import (concat_tables, groupby_distributed,
-                                            join_distributed, sort_distributed)
+from cuda.radixsort_tpu_torch.table import concat_tables
 from cuda.radixsort_tpu_torch.utils.convert import table_from_numpy, to_numpy
 
 N = 1800
@@ -127,11 +126,39 @@ def test_table_basics_and_errors():
         t.groupby_agg(["a"], {"a": ("b", "sum")})
     with pytest.raises(ValueError, match="column sets"):
         concat_tables([t, t.select(["a"])])
-    with pytest.raises(NotImplementedError, match="A.11"):
-        t.shard(None)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        groupby_distributed(t, "a", "b", mesh=None)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        join_distributed(t, t, on="a", value="b", mesh=None)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        sort_distributed(t, "a", mesh=None)
+    # an unsharded table records no global row count (Table.shard does;
+    # the distributed operators run in tests/test_torch_plan_distributed.py)
+    assert t._global_rows is None
+
+
+def test_block_mark_is_kept_and_refused_by_one_device_operators():
+    # one rank's block of a sharded table (what Table.shard returns):
+    # select and with_column keep its global row count; an operator that
+    # would see only this rank's rows refuses it
+    t = table_from_numpy({"a": np.arange(8, dtype=np.uint32),
+                          "b": np.arange(8, dtype=np.int32)}, "cpu")
+    blk = rt.Table({k: t[k] for k in t.column_names}, global_rows=29)
+    assert blk.select(["a"])._global_rows == 29
+    assert blk.with_column("c", blk["b"] * 2)._global_rows == 29
+    with pytest.raises(ValueError, match="column lengths"):
+        blk.with_column("c", torch.zeros(29, dtype=torch.int32))
+    calls = {
+        "Table.sort_by": lambda: blk.sort_by("a"),
+        "Table.sort_by_columns": lambda: blk.sort_by_columns(["a"]),
+        "Table.filter": lambda: blk.filter(blk["b"] > 2),
+        "Table.partition_by": lambda: blk.partition_by("a", bits=2),
+        "Table.groupby": lambda: blk.groupby("a", "b"),
+        "Table.groupby_agg": lambda: blk.groupby_agg(["a"],
+                                                     {"s": ("b", "sum")}),
+        "Table.distinct": lambda: blk.distinct("a"),
+        "Table.window": lambda: blk.window("a", "b", {"r": "row_number"}),
+        "Table.join": lambda: blk.join(t, on="a", value="b"),
+        "Table.join's build": lambda: t.join(blk, on="a", value="b"),
+        "Table.shard": lambda: blk.shard(None),
+        "concat_tables": lambda: concat_tables([t, blk]),
+        "Query.run without mesh=": lambda: rt.Query(blk).run(),
+    }
+    for what, call in calls.items():
+        with pytest.raises(ValueError, match="block of a sharded table") as e:
+            call()
+        assert str(e.value).startswith(what + ":"), str(e.value)
