@@ -64,6 +64,19 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      (against the rank-scatter route and a stable torch.sort), (f)
      segmented_sort of 2^24 keys in 4096 ragged segments; tile and cross
      launches must be > 0 on each, partition_stage 0 on the pure-sort paths;
+  6a. sort_large and measurement: sort_large L1-L5 through the public
+     entry point (2^28 and 2^27 random u32 at the default msd_bits 8 and 4,
+     2^27 u32 with 90% of the keys in one top byte, whose batches must hold
+     one bucket each, 2^24 f32 descending with msd_bits=4, 2^24 u32 with
+     0xFFFFFFFF keys), each counted (phase A: one histogram launch and one
+     stage pass) and bit for bit against the torch.sort oracle and rt.sort,
+     then timed beside both; sort and sort_pairs with engine="reference" at
+     2^20 (plain torch: no kernel may launch) bit for bit against rt.sort
+     and rt.sort_pairs, timed once; a utils/profiling.py trace of config 2
+     must hold the sort_pairs range; after phase 8, bitonic_passes(24, 1)
+     must equal path (a)'s tile and cross launches, and speed_of_light of
+     the 2^24 stage pass the share bound_ms gives (one memory rate, the
+     package's HBM_BYTES_PER_S);
   6b. compat: the CUB- and thrust-shaped surfaces (cub_compat.py,
      thrust_compat.py), C1-C14, each counted, bit for bit against a
      plain-torch oracle on the card, then timed: DeviceRadixSort.SortPairs
@@ -116,7 +129,8 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      2^28 with one and two limbs and on skewed keys, the scan at the
      FK join's 2^27 + 2^24 rows, the tile kernel's sort and merge passes at
      path (b)'s 2^28 x 4 planes, the 2^24 network also on tiles twice the
-     preset's, one block an SM);
+     preset's, one block an SM; the 1-plane tile pass beside its library
+     call, torch.sort(view(-1, 2^log_t), dim=-1));
   9. (--parent DIR only) the port of another commit, unpacked under DIR
      (`git archive`), built and imported beside this one: its histogram and
      scan kernels and the five radix paths against this checkout's on the
@@ -134,6 +148,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -165,8 +180,9 @@ NET_D = "(d) network FK inner join 2^27 x 2^24"
 NET_E = "(e) network merge_sorted_pairs 2^27 + 2^27 u32+u32"
 NET_F = "(f) network segmented_sort 2^24 u32, 4096 segments"
 NET_PATHS = (NET_A, NET_B, NET_C, NET_D, NET_E, NET_F)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-F32_OPS_PER_S = 67e12      # float32 outside the tensor cores, same source
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, NVIDIA's H100 SXM
+#                        data sheet; the memory rate is the package's table
+#                        (utils/profiling.py::HBM_BYTES_PER_S)
 
 
 def expect(cond: bool, what: str) -> None:
@@ -216,6 +232,7 @@ SORT_KERNELS = KERNELS[:2]
 NETWORK = KERNELS[3:]
 RADIX_OPERATOR = KERNELS[:3]
 PEAK_BYTES = [0]  # the largest device-memory peak seen by run_counted
+PATH_LAUNCHES: dict = {}  # path -> its launch counts, from run_counted
 
 
 def kernel_modules() -> dict:
@@ -245,6 +262,7 @@ def run_counted(path: str, fn, needs, launches: dict, forbid=()):
     counts = {k: getattr(m, attr) for k, (m, attr) in mods.items()}
     peak = torch.cuda.max_memory_allocated()
     PEAK_BYTES[0] = max(PEAK_BYTES[0], peak)
+    PATH_LAUNCHES[path] = counts
     log(f"[launches] {path}: {counts}; peak device memory "
         f"{peak / 2**30:.2f} GiB")
     expect(all(counts[k] > 0 for k in needs),
@@ -267,10 +285,21 @@ def wrap_i32(s: torch.Tensor) -> torch.Tensor:
     return (((s + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
 
 
+def hbm_bytes_per_s() -> float:
+    """The card's memory rate from the package's table, which has no
+    default: a card it does not list stops the script."""
+    from cuda.radixsort_tpu_torch.utils.profiling import HBM_BYTES_PER_S
+
+    name = torch.cuda.get_device_name(0)
+    expect(name in HBM_BYTES_PER_S, f"no memory rate for {name!r} in "
+           "utils/profiling.py::HBM_BYTES_PER_S")
+    return HBM_BYTES_PER_S[name]
+
+
 def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take: bytes over the memory rate or
     operations over the float32 rate, whichever is larger."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    t_bytes, t_ops = n_bytes / hbm_bytes_per_s(), n_ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1818,6 +1847,158 @@ def phase_network(gen: torch.Generator, launches: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# sort_large, the reference engine and the measurement module
+# ---------------------------------------------------------------------------
+
+L1 = "L1 sort_large 2^28 u32 (msd_bits 8)"
+L2 = "L2 sort_large 2^27 u32 (msd_bits 4)"
+L3 = "L3 sort_large 2^27 u32, 90% of keys in one top byte (msd_bits 4)"
+L4 = "L4 sort_large 2^24 f32 descending, msd_bits=4"
+L5 = "L5 sort_large 2^24 u32 with 0xFFFFFFFF keys (msd_bits 4)"
+LARGE_PATHS = (L1, L2, L3, L4, L5)
+N_REF = 1 << 20
+R1 = "R1 sort engine='reference' 2^20 u32"
+R2 = "R2 sort_pairs engine='reference' 2^20 u32+u32"
+REF_PATHS = (R1, R2)
+BATCHES: dict = {}  # L path -> (cap, group, buckets) of its batches
+
+
+def large_keys(name: str, gen: torch.Generator):
+    """(keys, descending, msd_bits) of one sort_large case, made on the
+    card; msd_bits None is sort_large's default."""
+    if name in (L1, L2):
+        return rand_bits(1 << (28 if name == L1 else 27), torch.uint32,
+                         gen), False, None
+    if name == L3:  # one bucket of about 0.9 * 2^27 keys: batches of one
+        k = rand_bits(1 << 27, torch.uint32, gen).view(torch.int32)
+        hot = torch.rand(k.numel(), device="cuda", generator=gen) < 0.9
+        k = torch.where(hot, (k & 0x00FFFFFF) | (0x5A << 24), k)
+        return k.view(torch.uint32), False, None
+    if name == L4:
+        return rand_bits(1 << 24, torch.float32, gen), True, 4
+    k = rand_bits(1 << 24, torch.uint32, gen).view(torch.int32)
+    top = torch.rand(k.numel(), device="cuda", generator=gen) < 0.05
+    return torch.where(top, -1, k).view(torch.uint32), False, None
+
+
+def phase_sort_large(gen: torch.Generator, launches: dict) -> dict:
+    """sort_large L1-L5 through the public entry point, each counted (one
+    histogram launch and one stage pass: phase A), bit for bit against
+    the torch.sort oracle and rt.sort, with the batches it chose, then
+    timed beside rt.sort and torch.sort; the reference engine R1-R2 at
+    2^20 (plain torch: no kernel may launch) bit for bit against rt.sort /
+    rt.sort_pairs, timed once; a trace of config 2 must hold the
+    sort_pairs range. Returns {path: (ms, rt_ms, torch_ms, rows)}."""
+    import cuda.radixsort_tpu_torch as rt
+    from cuda.radixsort_tpu_torch.utils import profiling
+    from cuda.radixsort_tpu_torch.utils.profiling import cuda_time_ms
+
+    sort_mod = importlib.import_module("cuda.radixsort_tpu_torch.ops.sort")
+    real_batches = sort_mod._hybrid_bucket_sort
+    batches = []
+
+    def counted_batches(pb, bounds, *, cap, group):
+        batches.append((cap, group, bounds.shape[0] - 1))
+        return real_batches(pb, bounds, cap=cap, group=group)
+
+    times = {}
+    for name in LARGE_PATHS:
+        keys, desc, msd = large_keys(name, gen)
+        run = lambda: rt.sort_large(keys, descending=desc, msd_bits=msd)
+        counts: dict = {}
+        batches.clear()
+        sort_mod._hybrid_bucket_sort = counted_batches
+        try:
+            out = run_counted(name, run, SORT_KERNELS, counts)
+        finally:
+            sort_mod._hybrid_bucket_sort = real_batches
+        expect(counts["digit_histograms"] == 1
+               and counts["partition_stage"] == 1,
+               f"{name}: phase A launched {counts}, not one histogram and "
+               "one stage pass")
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+        (cap, group, nb), = batches
+        BATCHES[name] = (cap, group, nb)
+        # the memory bound: a batch holds about 2^26 keys, or one bucket
+        # where a bucket is larger (L3's: batches of one bucket)
+        expect(group * cap <= max(cap, 1 << 26), f"{name}: batches of "
+               f"{group} x {cap} slots exceed max(cap, 2^26)")
+        check_sort(name, out, keys, descending=desc)
+        e = max_abs_err(out, rt.sort(keys, descending=desc))
+        expect(e == 0, f"{name}: differs from rt.sort (max err {e})")
+        del out
+        torch.cuda.empty_cache()
+        # torch.sort on the card sorts no u32: the sign-flipped int32 view
+        lib = (keys.view(torch.int32) ^ (-(1 << 31))
+               if keys.dtype == torch.uint32 else keys)
+        # the two phases apart: the partition on the kernels, the batches
+        cfg = rt.resolve()
+        phase_a = lambda: sort_mod._hybrid_partition(
+            keys, descending=desc, msd_bits=nb.bit_length() - 1, config=cfg)
+        pb, bounds = phase_a()
+        phase_b = lambda: sort_mod._hybrid_bucket_sort(pb, bounds, cap=cap,
+                                                       group=group)
+        times[name] = tuple(cuda_time_ms(f, runs=3) for f in (
+            run, lambda: rt.sort(keys, descending=desc),
+            lambda: torch.sort(lib))) + (keys.numel(),) + tuple(
+            cuda_time_ms(f, runs=3) for f in (phase_a, phase_b))
+        log(f"[sort_large] {name}: == the torch.sort oracle and rt.sort bit "
+            f"for bit; batches of {group} bucket(s) x {cap} slots; "
+            f"{times[name][0]:.3f} ms: phase A {times[name][4]:.3f} ms, "
+            f"phase B {times[name][5]:.3f} ms (rt.sort {times[name][1]:.3f} "
+            f"ms, torch.sort {times[name][2]:.3f} ms)")
+        del keys, lib, pb, bounds
+        torch.cuda.empty_cache()
+
+    ref = rt.SortConfig(engine="reference")
+    keys = (rand_bits(N_REF, torch.uint32, gen).view(torch.int32)
+            & 0xFFF0FFFF).view(torch.uint32)  # ties: stability shows
+    pay = rand_bits(N_REF, torch.uint32, gen)
+    out = run_counted(R1, lambda: rt.sort(keys, config=ref), (), {},
+                      forbid=KERNELS)
+    e = max_abs_err(out, rt.sort(keys))
+    expect(e == 0, f"{R1}: differs from rt.sort (max err {e})")
+    ok, ov = run_counted(R2, lambda: rt.sort_pairs(keys, pay, config=ref),
+                         (), {}, forbid=KERNELS)
+    wk, wv = rt.sort_pairs(keys, pay)
+    e = max(max_abs_err(ok, wk), max_abs_err(ov, wv))
+    expect(e == 0, f"{R2}: differs from rt.sort_pairs (max err {e})")
+    times[R1] = (cuda_time_ms(lambda: rt.sort(keys, config=ref), runs=1),
+                 cuda_time_ms(lambda: rt.sort(keys), runs=1), None, N_REF)
+    times[R2] = (cuda_time_ms(lambda: rt.sort_pairs(keys, pay, config=ref),
+                              runs=1),
+                 cuda_time_ms(lambda: rt.sort_pairs(keys, pay), runs=1),
+                 None, N_REF)
+    for name in LARGE_PATHS:  # batch shapes, in the record
+        times[name] += (BATCHES[name],)
+    log(f"[reference] {R1} and {R2} == rt.sort / rt.sort_pairs bit for bit, "
+        f"no kernel launched; {times[R1][0]:.3f} / {times[R2][0]:.3f} ms "
+        f"(radix {times[R1][1]:.3f} / {times[R2][1]:.3f} ms)")
+    del keys, pay, out, ok, ov, wk, wv
+
+    keys2 = rand_bits(N_PAIRS, torch.uint64, gen)
+    pay2 = rand_bits(N_PAIRS, torch.uint32, gen)
+    rt.sort_pairs(keys2, pay2)
+    trace_dir = os.path.join(HERE, "build", "chip_smoke_trace")
+    with profiling.trace(trace_dir) as d:
+        rt.sort_pairs(keys2, pay2)
+        torch.cuda.synchronize()
+    with open(os.path.join(d, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(trace_dir)
+    names = [e.get("name") for e in events]
+    expect("sort_pairs" in names, "a trace of config 2 holds no "
+           "'sort_pairs' range")
+    n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"[profiling] a trace of config 2 (utils/profiling.py::trace) holds "
+        f"the 'sort_pairs' range; {n_kernels} kernel events on the card")
+    del keys2, pay2
+    torch.cuda.empty_cache()
+    return times
+
+
+# ---------------------------------------------------------------------------
 # compat: the CUB- and thrust-shaped surfaces
 # ---------------------------------------------------------------------------
 
@@ -2840,6 +3021,21 @@ def phase_times(gen: torch.Generator) -> dict:
         planes = [rand_bits(N_KEYS, torch.uint32, gen) for _ in range(p)]
         lt = min(bk.tile_log_rows(p), logn)
         c = bk.cross_strides(p)
+        if p == 1:
+            # the 1-plane pass's library call: every 2^lt-row tile sorted
+            # by one torch.sort of the sign-flipped int32 view of the same
+            # keys (the pass leaves odd tiles descending: the same work);
+            # no single call computes the 4-plane pass
+            tiles = (planes[0].view(torch.int32)
+                     ^ (-(1 << 31))).view(-1, 1 << lt)
+            lib = lambda: torch.sort(tiles, dim=-1)
+            try:  # device_time_ms refuses a call that waits for the host
+                t["tile1_torch_sort_ms"] = device_time_ms(lib, runs=RUNS)
+                t["tile1_torch_sort_syncs"] = False
+            except RuntimeError:
+                t["tile1_torch_sort_ms"] = cuda_time_ms(lib, runs=RUNS)
+                t["tile1_torch_sort_syncs"] = True
+            del tiles, lib
         tile_kw = dict(log_t=lt, k_first=1, k_last=lt, n_cmp=p,
                        net_tile=bk.network_log_tile(p))
         cross_kw = dict(k=logn, lo=logn - c, c=c, n_cmp=p)
@@ -3158,6 +3354,29 @@ def phase_profile(gen: torch.Generator) -> None:
     torch.cuda.empty_cache()
 
 
+def check_measurement(t: dict, stage_bound: tuple) -> None:
+    """The measurement module on this run's numbers: bitonic_passes(24, 1)
+    is the tile and cross launches counted on network path (a), and
+    speed_of_light of the 2^24 stage pass gives the share bound_ms gives."""
+    from cuda.radixsort_tpu_torch.utils.profiling import (bitonic_passes,
+                                                          speed_of_light)
+
+    a = PATH_LAUNCHES[NET_A]
+    counted = a["bitonic_tile"] + a["bitonic_cross"]
+    expect(bitonic_passes(24, 1) == counted,
+           f"bitonic_passes(24, 1) = {bitonic_passes(24, 1)}, but {NET_A} "
+           f"launched {counted} tile and cross passes")
+    sol = speed_of_light(8 * N_KEYS + 4 * 256, t["stage1_ms"] / 1e3)
+    share = stage_bound[0] / t["stage1_ms"]
+    expect(abs(sol["fraction_of_sol"] - share) <= 1e-9 * share,
+           f"speed_of_light {sol['fraction_of_sol']} != bound_ms / ms "
+           f"{share} for the 2^24 stage pass")
+    log(f"[profiling] bitonic_passes(24, 1) = {counted} = {NET_A}'s tile + "
+        f"cross launches; the 2^24 stage pass runs at "
+        f"{sol['fraction_of_sol']:.4f} of the memory rate "
+        f"({sol['hbm_bytes_per_s']:.4g} B/s), as bound_ms gives")
+
+
 def main() -> int:
     args = sys.argv[1:]
     profile_run = "--profile" in args
@@ -3179,6 +3398,7 @@ def main() -> int:
     phase_network(gen, launches)
     if profile_run:
         phase_profile(gen)
+    large_ms = phase_sort_large(gen, launches)
     compat_ms = phase_compat(gen, launches)
     external_s = phase_external(gen, launches)
     dist_launches: dict = {}
@@ -3249,6 +3469,23 @@ def main() -> int:
     log(f"[times] (d)'s sort 2^27 + 2^24 rows, key + tag + value: split-sort-"
         f"merge route {t['split19_ms']:.3f} ms, padded 2^28 network "
         f"{t['split29_ms']:.3f} ms (split_sort_min_logn 19 / 29; same bits)")
+    for name in LARGE_PATHS:
+        ms, rt_ms, torch_ms, rows, a_ms, b_ms, (cap, group, nb) = \
+            large_ms[name]
+        log(f"[times] {name}: {ms:.3f} ms = {rows / ms * 1e3:.4g} keys/s "
+            f"(phase A {a_ms:.3f} ms, phase B {b_ms:.3f} ms in {nb // group}"
+            f" batch(es) of {group} x {cap}); rt.sort {rt_ms:.3f} ms; "
+            f"torch.sort {torch_ms:.3f} ms")
+    for name in REF_PATHS:
+        ms, rt_ms, _, rows = large_ms[name]
+        log(f"[times] {name}: {ms:.3f} ms = {rows / ms * 1e3:.4g} keys/s; "
+            f"the radix engine {rt_ms:.3f} ms")
+    log(f"[times] tile pass 2^24, 1 plane, beside its library call "
+        f"torch.sort(view(-1, 2^{t['geometry1'][0]}), dim=-1) of the "
+        f"sign-flipped int32 view: {t['tile1_ms']:.4f} / "
+        f"{t['tile1_torch_sort_ms']:.4f} ms (the card's time per call"
+        + (", the library call one call as a caller waits: it syncs)"
+           if t["tile1_torch_sort_syncs"] else ")"))
     log(f"[times] peak device memory {t['peak_gib']:.2f} GiB; card: {smi}")
 
     from cuda.radixsort_tpu_torch.kernels import bitonic as bk
@@ -3270,6 +3507,7 @@ def main() -> int:
     hist_2_28_bound = bound_ms(4 * N_PAIRS + 4 * 256 * 4, 4 * N_PAIRS)
     hist2_2_28_bound = bound_ms(8 * N_PAIRS + 8 * 256 * 4, 8 * N_PAIRS)
     stage_bound = bound_ms(8 * N_KEYS + 4 * 256, N_KEYS)
+    check_measurement(t, stage_bound)
     stage_2_28_bound = bound_ms(8 * 3 * N_PAIRS + 4 * 256, N_PAIRS)
     # scans: 4 B of value and 1 B of flag read, 4 B written per row
     scan_bound = bound_ms(9 * N_KEYS, N_KEYS)
@@ -3338,11 +3576,16 @@ def main() -> int:
          "ms": t["tile1_ms"], "plain_ms": t["tile1_plain_ms"],
          "ms_per_call": t["tile1_call_ms"],
          "bound_ms": net_bounds[1][0][0], "bound_by": net_bounds[1][0][1],
-         "library_ms": t["torch_sort_ms"],
-         "library_call": "torch.sort of the 2^24 u32 bits: the yardstick of "
-                         "the whole 1-plane network (network_ms), not of "
-                         "this one pass",
+         "library_ms": t["tile1_torch_sort_ms"],
+         "library_call": f"torch.sort(view(-1, 2^{t['geometry1'][0]}), "
+                         "dim=-1) of the sign-flipped int32 view: every "
+                         "tile sorted (the pass leaves odd tiles "
+                         "descending; the same work); no single call "
+                         "computes the 4-plane pass",
          "network_ms": t["network1_ms"],
+         "network_library_ms": t["torch_sort_ms"],
+         "network_library_call": "torch.sort of the 2^24 u32 bits (the "
+                                 "whole 1-plane network's yardstick)",
          "ms_4_planes": t["tile4_ms"], "plain_ms_4_planes": t["tile4_plain_ms"],
          "bound_ms_4_planes": net_bounds[4][0][0],
          "network_ms_4_planes": t["network4_ms"],
@@ -3381,6 +3624,19 @@ def main() -> int:
         "network_paths_ms": {name: {"bitonic": t[name][0], "radix": t[name][1],
                                     "oracle": t[name][2]}
                              for name in NET_PATHS},
+        "sort_large_ms": {name: {"sort_large": large_ms[name][0],
+                                 "rt_sort": large_ms[name][1],
+                                 "torch_sort": large_ms[name][2],
+                                 "rows": large_ms[name][3],
+                                 "phase_a": large_ms[name][4],
+                                 "phase_b": large_ms[name][5],
+                                 "cap": large_ms[name][6][0],
+                                 "group": large_ms[name][6][1],
+                                 "buckets": large_ms[name][6][2]}
+                          for name in LARGE_PATHS},
+        "reference_engine_ms": {name: {"reference": large_ms[name][0],
+                                       "radix": large_ms[name][1]}
+                                for name in REF_PATHS},
         "compat_paths_ms": compat_ms,
         "external_paths_s": external_s,
         "distributed_paths_ms": dist_ms,

@@ -12,6 +12,10 @@ Public API (parity: CUB ``device_radix_sort.cuh``, ``device_scan.cuh``,
 ``device_merge.cuh``, ``device_segmented_radix_sort.cuh``; thrust set ops):
     sort, sort_pairs, argsort, sort_struct   — radix sort, or the network
                                                (SortConfig(engine="bitonic"))
+                                               or the plain reference
+                                               (engine="reference")
+    sort_large                               — MSD partition on the kernels,
+                                               then bucket sorts in batches
     segmented_sort                           — stable sort per segment
     merge_sorted, merge_sorted_pairs         — stable two-way merge
     set_intersection, set_difference,
@@ -31,18 +35,26 @@ Public API (parity: CUB ``device_radix_sort.cuh``, ``device_scan.cuh``,
     sort_external, sort_external_pairs       — host arrays larger than the
                                                card: chunk sorts + host merge
     Table, table, Query                      — column batches and query plans
-    SortConfig, preset, resolve              — tuning policy
+    SortConfig, preset, resolve, best_engine — tuning policy
 
 CUB- and thrust-shaped surfaces: ``cub_compat`` (DeviceRadixSort and the
-rest of CUB's device-wide suite) and ``thrust_compat``.
+rest of CUB's device-wide suite) and ``thrust_compat``. Measurement:
+``utils/profiling.py`` (CUDA-event timers, ``speed_of_light``, the
+network's bytes model, ``trace``).
 
 ``python -m cuda.radixsort_tpu_torch`` runs a one-command self-test.
 """
 
-from cuda.radixsort_tpu_torch.config import SortConfig, preset, resolve  # noqa: F401
+from cuda.radixsort_tpu_torch.config import (  # noqa: F401
+    SortConfig,
+    best_engine,
+    preset,
+    resolve,
+)
 from cuda.radixsort_tpu_torch.ops.sort import (  # noqa: F401
     argsort,
     sort,
+    sort_large,
     sort_pairs,
     sort_struct,
 )

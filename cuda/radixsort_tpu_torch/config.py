@@ -13,10 +13,11 @@ reads an environment variable.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-ENGINES = ("auto", "radix", "bitonic")
+ENGINES = ("auto", "radix", "bitonic", "reference")
 
 MAX_PLANES = 4            # u32 planes the network kernels carry
 SMEM_BYTES = 232448       # shared memory one block may use (227 KB, sm_90)
@@ -37,7 +38,8 @@ class SortConfig:
 
     Attributes:
       radix_bits: digit width of one counting pass, 2, 4 or 8 (8 = 256 bins,
-        the contract's digit width: a u32 sort is 4 passes).
+        the contract's digit width: a u32 sort is 4 passes); the
+        'reference' engine takes any width from 1 to 16.
       block_threads: threads per block of the stage kernel (a multiple of
         32, at most 512: the kernel is built for 512 threads a block, so a
         thread keeps up to 128 registers for its keys and their slots; its
@@ -46,8 +48,11 @@ class SortConfig:
       items_per_thread: keys each thread ranks per tile, one of
         ``STAGE_ITEMS`` (the kernel holds them in registers, one build per
         value); a tile holds ``block_threads * items_per_thread`` keys.
-      engine: 'auto' (= 'radix'), 'radix' (the LSD pipeline) or
-        'bitonic' (the comparison network, kernels/bitonic.py).
+      engine: 'auto' (= 'radix'), 'radix' (the LSD pipeline),
+        'bitonic' (the comparison network, kernels/bitonic.py) or
+        'reference' (the LSD pipeline in plain torch with CUB's tile and
+        spine layout, ``ops/sort.py::counting_pass_reference``: an oracle
+        that runs only where it is named; 'auto' never picks it).
       split_sort_min_logn: a network sort padded by a quarter or more takes
         the split-sort-merge route from 2^this padded rows up (at least 11).
     """
@@ -59,7 +64,11 @@ class SortConfig:
     split_sort_min_logn: int = 19
 
     def __post_init__(self):
-        if self.radix_bits not in (2, 4, 8):
+        if self.engine == "reference":
+            if not 1 <= self.radix_bits <= 16:
+                raise ValueError("the reference engine takes radix_bits 1-16;"
+                                 f" got {self.radix_bits}")
+        elif self.radix_bits not in (2, 4, 8):
             raise ValueError(f"radix_bits must be 2, 4 or 8; got {self.radix_bits}")
         if (self.block_threads % 32
                 or not 32 <= self.block_threads <= MAX_STAGE_THREADS):
@@ -85,6 +94,26 @@ class SortConfig:
 
     def replace(self, **kw) -> "SortConfig":
         return dataclasses.replace(self, **kw)
+
+
+@functools.cache
+def default_backend() -> str:
+    """'cuda' where a card is present, else 'cpu'."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def best_engine(platform: str | None = None) -> str:
+    """The fastest full-sort engine: 'radix' on every platform.
+
+    On the card (NVIDIA H100 80GB HBM3, 700 W power limit) the radix
+    pipeline led the network on every sort path measured: config 1's 2^24
+    u32 sort, config 2's 2^28 pairs stable and unstable, the FK join and
+    the segmented sort (PERF.md, sections 5-7). The network led only on
+    the 2^28 pair merge, which is not a full sort. On the CPU the kernels
+    run their plain versions and the radix route is the one the tests
+    hold against the reference. ``platform`` is accepted for the JAX
+    signature and does not change the answer."""
+    return "radix"
 
 
 # Per-architecture presets, keyed on torch.cuda.get_device_capability().
@@ -126,10 +155,14 @@ def for_partition(cfg: SortConfig, bits: int | None = None) -> SortConfig:
     return cfg
 
 
-def resolve(config: SortConfig | None = None) -> SortConfig:
-    """Resolve 'auto' to the engine that runs: the radix pipeline. The
-    network runs only where 'bitonic' is asked for."""
+def resolve(config: SortConfig | None = None, **overrides) -> SortConfig:
+    """The configuration a call runs with: ``config`` (default: the
+    preset) with ``overrides`` applied, then 'auto' resolved to
+    :func:`best_engine`. The network and the reference engine run only
+    where they are named."""
     cfg = config or preset()
+    if overrides:
+        cfg = cfg.replace(**overrides)
     if cfg.engine == "auto":
-        cfg = cfg.replace(engine="radix")
+        cfg = cfg.replace(engine=best_engine())
     return cfg

@@ -20,6 +20,7 @@ from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.ops.filter import filter_columns
 from cuda.radixsort_tpu_torch.ops.scan import plain_scan_fast, segmented_scan
 from cuda.radixsort_tpu_torch.ops.sort import sort_pairs, sort_struct
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 _AGGS = ("sum", "count", "min", "max", "mean", "var", "std")
 
@@ -96,6 +97,7 @@ def _invalid_flag(valid: torch.Tensor) -> torch.Tensor:
     return (~valid.to(torch.bool)).to(torch.uint8)
 
 
+@traced
 def groupby(keys: torch.Tensor, values: torch.Tensor | None = None, *,
             agg: str = "sum", valid: torch.Tensor | None = None,
             config: config_lib.SortConfig | None = None):
@@ -148,6 +150,7 @@ def groupby(keys: torch.Tensor, values: torch.Tensor | None = None, *,
     return gk, gv, count
 
 
+@traced
 def groupby_multi(key_columns, value_columns, agg_ops, *,
                   valid: torch.Tensor | None = None,
                   config: config_lib.SortConfig | None = None):
@@ -207,6 +210,7 @@ def groupby_multi(key_columns, value_columns, agg_ops, *,
     return cols[:nk], cols[nk:], count
 
 
+@traced
 def groupby_quantile(keys, values: torch.Tensor, qs=(0.5,), *,
                      valid: torch.Tensor | None = None,
                      config: config_lib.SortConfig | None = None):

@@ -34,6 +34,7 @@ import torch
 
 from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.ops.sort import _flatten, _unflatten
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 
 def _ordered(t: torch.Tensor) -> torch.Tensor:
@@ -96,6 +97,7 @@ def _unsigned_leaves(leaves) -> list:
     return sorted({str(t.dtype) for t in leaves if t.dtype in twiddle.PARTIAL})
 
 
+@traced
 def comparator_sort(
     keys: Any,
     comp: Callable[[Any, Any], torch.Tensor],
@@ -204,6 +206,7 @@ def comparator_sort(
     return out_keys, _unflatten(val_spec, iter(cols[nk:]))
 
 
+@traced
 def comparator_argsort(
     keys: Any,
     comp: Callable[[Any, Any], torch.Tensor],

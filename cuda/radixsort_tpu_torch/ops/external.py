@@ -38,6 +38,7 @@ from cuda.radixsort_tpu_torch.ops.sort import sort as _sort
 from cuda.radixsort_tpu_torch.ops.sort import sort_pairs as _sort_pairs
 from cuda.radixsort_tpu_torch.utils import native
 from cuda.radixsort_tpu_torch.utils.convert import from_numpy, to_numpy
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 _PARTS = ("h2d", "device", "d2h", "merge")
 
@@ -131,6 +132,7 @@ def _check_chunk(chunk: int) -> None:
         raise ValueError(f"chunk must be positive; got {chunk}")
 
 
+@traced
 def sort_external(
     keys: np.ndarray,
     *,
@@ -158,6 +160,7 @@ def sort_external(
     return mv.merge(runs)
 
 
+@traced
 def sort_external_pairs(
     keys: np.ndarray,
     values: np.ndarray,
@@ -222,6 +225,7 @@ def _flush(a: np.ndarray) -> None:
         a.flush()
 
 
+@traced
 def sort_external_file(
     in_path: str,
     out_path: str,
@@ -274,6 +278,7 @@ def sort_external_file(
     return n
 
 
+@traced
 def sort_external_pairs_file(
     keys_path: str,
     values_path: str,
@@ -348,6 +353,7 @@ def _fold_u32(t: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
     return torch.where(live, w, 0).sum() & 0xFFFFFFFF
 
 
+@traced
 def join_external(
     build_keys: np.ndarray,
     build_vals: np.ndarray,

@@ -14,6 +14,7 @@ import torch
 
 from cuda.radixsort_tpu_torch import config as config_lib
 from cuda.radixsort_tpu_torch.ops.sort import sort_pairs
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 
 def compaction_config(config: config_lib.SortConfig | None = None
@@ -32,6 +33,7 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
     return mask.to(torch.bool).sum(dtype=torch.int32)
 
 
+@traced
 def selection_vector(mask: torch.Tensor,
                      config: config_lib.SortConfig | None = None):
     """mask (N,) bool -> (sel (N,) int32, count). sel[:count] are the indices
@@ -46,6 +48,7 @@ def selection_vector(mask: torch.Tensor,
     return sel, _count(mask)
 
 
+@traced
 def filter_columns(mask: torch.Tensor, columns,
                    config: config_lib.SortConfig | None = None):
     """Compact a tensor, or a list, tuple or dict of equal-length tensors,

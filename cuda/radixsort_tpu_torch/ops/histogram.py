@@ -19,6 +19,7 @@ import torch
 from cuda.radixsort_tpu_torch import config as config_lib
 from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.kernels import histogram as khist
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 _KERNEL_MAX_BINS = 255  # bins of one 8-bit digit, less the spare bin
 
@@ -37,6 +38,7 @@ def count_bins(idx: torch.Tensor, nbins: int) -> torch.Tensor:
     return out[:nbins]
 
 
+@traced
 def digit_histogram(keys: torch.Tensor, *, begin_bit: int = 0, bits: int = 8,
                     config: config_lib.SortConfig | None = None
                     ) -> torch.Tensor:
@@ -64,6 +66,7 @@ def digit_histogram(keys: torch.Tensor, *, begin_bit: int = 0, bits: int = 8,
     return count_bins(digits, 1 << bits)
 
 
+@traced
 def histogram_even(samples: torch.Tensor, num_bins: int, lower,
                    upper) -> torch.Tensor:
     """Histogram over ``num_bins`` even bins covering [lower, upper), in
@@ -93,6 +96,7 @@ def _as_dtype(samples: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(s >= float(info.max), info.max, out)
 
 
+@traced
 def histogram_range(samples: torch.Tensor,
                     levels: torch.Tensor) -> torch.Tensor:
     """Histogram over bins [levels[i], levels[i+1]); samples outside

@@ -24,6 +24,7 @@ from cuda.radixsort_tpu_torch.ops.filter import filter_columns
 from cuda.radixsort_tpu_torch.ops.scan import (_full, _identity_of,
                                                plain_scan_fast, segmented_scan)
 from cuda.radixsort_tpu_torch.ops.sort import sort_pairs, sort_struct
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 _HOWS = ("inner", "left", "semi", "anti", "right", "full")
 
@@ -72,6 +73,7 @@ def _with_probe_zeros(build_vals: torch.Tensor, np_: int) -> torch.Tensor:
                                                 device=build_vals.device)])
 
 
+@traced
 def join(build_keys, build_vals: torch.Tensor, probe_keys, *,
          how: str = "inner", build_valid: torch.Tensor | None = None,
          probe_valid: torch.Tensor | None = None,
@@ -215,6 +217,7 @@ def _sorted_merge_state(build_keys, build_vals, probe_keys, cfg):
     return skeys, svals, sorig, ~is_build, grp_start, n_build
 
 
+@traced
 def join_count(build_keys: torch.Tensor, probe_keys: torch.Tensor, *,
                config: config_lib.SortConfig | None = None) -> torch.Tensor:
     """Phase one of the expanding join: the number of inner-join output
@@ -227,6 +230,7 @@ def join_count(build_keys: torch.Tensor, probe_keys: torch.Tensor, *,
     return torch.where(is_probe, n_build, 0).sum(dtype=torch.int32)
 
 
+@traced
 def join_expand(build_keys: torch.Tensor, build_vals: torch.Tensor,
                 probe_keys: torch.Tensor, *, capacity: int,
                 how: str = "inner",

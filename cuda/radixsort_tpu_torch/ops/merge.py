@@ -27,6 +27,7 @@ from cuda.radixsort_tpu_torch.kernels import bitonic as kbitonic
 from cuda.radixsort_tpu_torch.ops.sort import (_MAX_U32, _flatten,
                                                _key_to_limbs, _limbs_to_key,
                                                _unflatten, apply_permutation)
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 
 def ordered_i64(bits: torch.Tensor) -> torch.Tensor:
@@ -77,6 +78,7 @@ def _check_keys(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"keys on {a.device} and {b.device}")
 
 
+@traced
 def merge_sorted(a: torch.Tensor, b: torch.Tensor, *,
                  descending: bool = False,
                  config: config_lib.SortConfig | None = None) -> torch.Tensor:
@@ -100,6 +102,7 @@ def merge_sorted(a: torch.Tensor, b: torch.Tensor, *,
     return twiddle.twiddle_out(mbits, a.dtype, descending=descending)
 
 
+@traced
 def merge_sorted_pairs(a_keys: torch.Tensor, a_values, b_keys: torch.Tensor,
                        b_values, *, descending: bool = False,
                        config: config_lib.SortConfig | None = None):

@@ -19,6 +19,7 @@ import torch
 from cuda.radixsort_tpu_torch import config as config_lib
 from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.ops.sort import sort_pairs
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 HASH_MUL = 0x9E3779B1  # Fibonacci hashing constant
 HASH_MUL2 = 0x85EBCA77
@@ -65,12 +66,14 @@ def _mix(x: torch.Tensor) -> torch.Tensor:
     return x ^ _shr(x, 13)
 
 
+@traced
 def hash32(keys: torch.Tensor) -> torch.Tensor:
     """Cheap elementwise u32 mix for hash partitioning; non-u32 keys are
     converted to u32 first (as ``astype``). Returns torch.uint32."""
     return _mix(_u32_bits(keys)).view(torch.uint32)
 
 
+@traced
 def bucket_ids(keys: torch.Tensor, *, bits: int, by_hash: bool = False):
     """Bucket id (torch.uint32, in [0, 2**bits)) of each key: the top
     ``bits`` of the hash, or of the twiddled key. The hash reads a 4-byte
@@ -92,6 +95,7 @@ def bucket_ids(keys: torch.Tensor, *, bits: int, by_hash: bool = False):
     return top.to(torch.int32).view(torch.uint32)
 
 
+@traced
 def partition(keys: torch.Tensor, values=None, *, bits: int,
               by_hash: bool = False,
               config: config_lib.SortConfig | None = None):

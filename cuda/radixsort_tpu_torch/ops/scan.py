@@ -5,13 +5,17 @@ cub::DeviceScan::{Inclusive,Exclusive}{Sum,Scan}ByKey and InclusiveScanInit:
 segments are maximal runs of consecutive keys equal under ``equality_op``
 (a run-based contract, not a global group-by).
 
-Routes, by operator and dtype (no size gate):
-  * named sum/min/max over int32, uint32 and float32: the segmented-scan
-    kernel (``kernels/scan.py``; its plain version on a CPU tensor);
-  * other integer sums: the running sum minus its value at each segment
-    head (exact, wrapping);
-  * everything else (prod, a callable op, other dtypes): a flagged
-    Hillis-Steele doubling.
+Routes, by ``engine=`` (JAX's three values) and then by operator and dtype
+(no size gate):
+  * 'auto': named sum/min/max over int32, uint32 and float32 take the
+    segmented-scan kernel (``kernels/scan.py``; its plain version on a CPU
+    tensor), the rest the routes of 'xla';
+  * 'pallas': the kernel, for those ops and dtypes only (another op raises
+    JAX's ValueError, another dtype a TypeError);
+  * 'xla': the routes that are not the kernel, on the tensor's own device:
+    integer sums by the running sum minus its value at each segment head
+    (exact, wrapping); everything else (float sums, min, max, prod, a
+    callable op) by a flagged Hillis-Steele doubling.
 Exclusive scans shift values one slot right within each segment (heads take
 the operator's identity) and run the same inclusive machinery; ``init`` is
 then combined from the left into every output element, CUB's per-segment
@@ -26,8 +30,10 @@ import torch
 
 from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.kernels import scan as kscan
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 _NAMED = ("sum", "prod", "min", "max")
+ENGINES = ("auto", "pallas", "xla")
 
 
 def _full(shape, value, dtype, device) -> torch.Tensor:
@@ -99,8 +105,10 @@ def plain_scan_fast(x: torch.Tensor, op: str) -> torch.Tensor:
     return {"max": torch.cummax, "min": torch.cummin}[op](x, 0).values
 
 
+@traced
 def segmented_scan(values: torch.Tensor, head_flags: torch.Tensor, op="sum", *,
-                   identity=None, exclusive: bool = False, init=None):
+                   identity=None, exclusive: bool = False, init=None,
+                   engine: str = "auto"):
     """Prefix-scan ``values`` with ``op``, restarting at every True in
     ``head_flags`` (position 0 is always a segment head).
 
@@ -109,18 +117,25 @@ def segmented_scan(values: torch.Tensor, head_flags: torch.Tensor, op="sum", *,
     exclusive=True shifts the scan right within each segment; ``init``
     (optional) is combined from the left into every output element: for
     an inclusive scan CUB's InclusiveScanInit, for an exclusive scan the
-    seed of each segment (ExclusiveScanByKey)."""
+    seed of each segment (ExclusiveScanByKey). engine: 'auto', 'pallas'
+    (the scan kernel) or 'xla' (the routes that are not the kernel), as
+    the module's docstring sets out."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}; got {engine!r}")
     f, ident = _resolve_op(op, identity, values.dtype, values.device,
                            need_identity=exclusive)
     n = values.shape[0]
     if n == 0:
         return values
+    if engine == "pallas" and (callable(op) or op not in kscan.OPS):
+        raise ValueError(f"op must be one of {list(kscan.OPS)}")
     flags = head_flags.to(torch.bool).clone()
     flags[0] = True
     if exclusive:
         shifted = twiddle.cat([ident.reshape(1), values[:-1]])
         values = twiddle.where(flags, ident, shifted)
-    if op in kscan.OPS and values.dtype in kscan.DTYPES:
+    if engine == "pallas" or (engine == "auto" and op in kscan.OPS
+                              and values.dtype in kscan.DTYPES):
         out = kscan.segmented_scan(values.contiguous(), flags, op)
     elif op == "sum" and not values.dtype.is_floating_point:
         out = kscan.segmented_cumsum(values, flags)
@@ -131,6 +146,7 @@ def segmented_scan(values: torch.Tensor, head_flags: torch.Tensor, op="sum", *,
     return out
 
 
+@traced
 def plain_scan(values: torch.Tensor, op, *, identity=None,
                exclusive: bool = False, init=None):
     """Whole-array prefix scan on the same machinery (no heads but the
@@ -143,6 +159,7 @@ def plain_scan(values: torch.Tensor, op, *, identity=None,
                           exclusive=exclusive, init=init)
 
 
+@traced
 def reduce_with(values: torch.Tensor, op, init=None, *, identity=None):
     """Whole-array reduction for an associative op: a log-depth pairwise
     fold (halving loop). Returns a 0-d tensor."""
@@ -159,17 +176,18 @@ def reduce_with(values: torch.Tensor, op, init=None, *, identity=None):
     return total
 
 
+@traced
 def scan_by_key(keys, values: torch.Tensor, op="sum", *, identity=None,
                 exclusive: bool = False, init=None,
-                equality_op: Callable | None = None):
+                equality_op: Callable | None = None, engine: str = "auto"):
     """Scan ``values`` within runs of consecutive equal ``keys``.
 
     ``keys`` may be one tensor or a tuple of equal-length tensors (runs
     break where any column changes). op: 'sum', 'prod', 'min', 'max' or an
-    associative callable (then pass identity=). Matches
-    cub::DeviceScan::*ByKey semantics."""
+    associative callable (then pass identity=). engine as in
+    :func:`segmented_scan`. Matches cub::DeviceScan::*ByKey semantics."""
     if values.shape[0] == 0:
         return values
     heads = _head_flags(keys, equality_op)
     return segmented_scan(values, heads, op, identity=identity,
-                          exclusive=exclusive, init=init)
+                          exclusive=exclusive, init=init, engine=engine)

@@ -27,6 +27,7 @@ from cuda.radixsort_tpu_torch.ops.sort import (_bitonic_planes, _check_1d,
                                                _key_to_limbs, _limbs_to_key,
                                                _sort_limbs, _unflatten,
                                                full_range)
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 
 def _segment_ids(offsets: torch.Tensor, n: int) -> torch.Tensor:
@@ -40,6 +41,7 @@ def _segment_ids(offsets: torch.Tensor, n: int) -> torch.Tensor:
     return plain_scan_fast(ind[:n].contiguous(), "sum").view(torch.uint32)
 
 
+@traced
 def segmented_sort(keys: torch.Tensor, offsets: torch.Tensor, values=None, *,
                    descending: bool = False,
                    num_segments_bound: int | None = None,

@@ -21,6 +21,7 @@ from cuda.radixsort_tpu_torch.ops.filter import filter_columns
 from cuda.radixsort_tpu_torch.ops.histogram import count_bins
 from cuda.radixsort_tpu_torch.ops.scan import plain_scan_fast
 from cuda.radixsort_tpu_torch.ops.sort import sort_pairs
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 
 def _as_i64(value: int) -> int:
@@ -65,6 +66,7 @@ def _key_of_bits(prefix: torch.Tensor, dtype: torch.dtype,
                                dtype, descending=largest)
 
 
+@traced
 def kth_value(keys: torch.Tensor, k, *, largest: bool = False):
     """The k-th smallest key (0-based; largest=True for the k-th largest)
     as a 0-d tensor, for every key dtype the sort takes. ``k`` may be an
@@ -74,6 +76,7 @@ def kth_value(keys: torch.Tensor, k, *, largest: bool = False):
     return _key_of_bits(prefix, keys.dtype, largest)
 
 
+@traced
 def top_k(keys: torch.Tensor, k: int, *, largest: bool = True,
           sorted_result: bool = True,
           config: config_lib.SortConfig | None = None):

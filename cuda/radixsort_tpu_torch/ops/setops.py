@@ -22,6 +22,7 @@ from cuda.radixsort_tpu_torch import config as config_lib
 from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.ops.filter import filter_columns
 from cuda.radixsort_tpu_torch.ops.merge import merge_sorted_pairs, ordered_i64
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 
 def _occ_and_other(x_bits: torch.Tensor, y_bits: torch.Tensor):
@@ -57,6 +58,7 @@ def _merge_keep_compact(ab, keep_a, bb, keep_b, config):
     return out, cnt
 
 
+@traced
 def set_intersection(a, b, *, descending: bool = False,
                      config: config_lib.SortConfig | None = None):
     """min(m, n) copies of each common value, taken from a.
@@ -67,6 +69,7 @@ def set_intersection(a, b, *, descending: bool = False,
     return twiddle.twiddle_out(out, a.dtype, descending=descending), cnt
 
 
+@traced
 def set_difference(a, b, *, descending: bool = False,
                    config: config_lib.SortConfig | None = None):
     """max(m - n, 0) copies: a's rows beyond b's count of their value.
@@ -77,6 +80,7 @@ def set_difference(a, b, *, descending: bool = False,
     return twiddle.twiddle_out(out, a.dtype, descending=descending), cnt
 
 
+@traced
 def set_union(a, b, *, descending: bool = False,
               config: config_lib.SortConfig | None = None):
     """max(m, n) copies: all of a, then b's surplus beyond a's count.
@@ -89,6 +93,7 @@ def set_union(a, b, *, descending: bool = False,
     return twiddle.twiddle_out(out, a.dtype, descending=descending), cnt
 
 
+@traced
 def set_symmetric_difference(a, b, *, descending: bool = False,
                              config: config_lib.SortConfig | None = None):
     """|m - n| copies of each value (a's surplus and b's surplus).

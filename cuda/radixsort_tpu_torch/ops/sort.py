@@ -13,6 +13,13 @@ into unsigned bits and split into u32 limbs (64-bit keys: hi, lo).
   JAX engine routes them under ``interpret=True``; the rest (bit ranges,
   8-byte payloads, more planes, keys-only struct sorts) takes the stable
   radix path, which gives the stable result the JAX engine falls back to.
+* engine 'reference': the same LSD passes in plain torch with CUB's tile
+  and spine layout (:func:`plan_passes`, :func:`counting_pass_reference`,
+  :func:`apply_permutation`), on the tensors' own device: the oracle the
+  JAX package calls its reference engine. It runs only where it is named.
+
+:func:`sort_large` partitions 32-bit keys by their top bits on the kernels
+and sorts the buckets in batches of bounded size.
 
 Parity: CUB DeviceRadixSort::{SortKeys, SortPairs} (+Descending) with
 begin_bit/end_bit, thrust::sort_by_key for ``stable=False``, and the
@@ -26,7 +33,9 @@ import torch
 from cuda.radixsort_tpu_torch import config as config_lib
 from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.kernels import bitonic as kbitonic
+from cuda.radixsort_tpu_torch.kernels import histogram as hist_lib
 from cuda.radixsort_tpu_torch.kernels import pipeline as kpipe
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 # Rows are indexed in int32 (index payloads); digit counts and bucket bases
 # are u32 (one digit of 2^31 keys counts 2^31). Past 2^31 rows is the
@@ -109,7 +118,11 @@ def _sort_limbs(limbs, limb_bits, payloads, cfg, stable: bool = True,
     """Sort u32 limb columns (most significant first, limb_bits[k] the bits
     of limb k that order) with payload columns of any supported dtype
     riding along. The network takes the pair sorts it can serve
-    (:func:`_network_pairs`); everything else is the stable LSD sort."""
+    (:func:`_network_pairs`); the reference engine runs its plain passes
+    (:func:`_sort_limbs_reference`); everything else is the stable LSD
+    sort on the kernels."""
+    if cfg.engine == "reference":
+        return _sort_limbs_reference(limbs, limb_bits, payloads, cfg)
     if cfg.engine == "bitonic":
         out = _network_pairs(limbs, limb_bits, payloads, cfg, stable,
                              unique_leading_payload)
@@ -138,6 +151,116 @@ def apply_permutation(dest: torch.Tensor, arrays):
         twiddle.full_view(o)[dest] = twiddle.full_view(a)
         out.append(o)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the reference engine: CUB's tile and spine layout in plain torch
+# ---------------------------------------------------------------------------
+
+
+def plan_passes(begin_bit: int, end_bit: int,
+                radix_bits: int) -> list[tuple[int, int]]:
+    """[(shift, width), ...]: the LSD passes over [begin_bit, end_bit).
+    As CUB (dispatch_radix_sort.cuh, alternative smaller-radix passes),
+    the passes of radix_bits - 1 bits come first so that every pass is
+    radix_bits or radix_bits - 1 wide; a radix of 1, or more short passes
+    than passes, gives full-width passes and a shorter last one."""
+    num_bits = end_bit - begin_bit
+    if num_bits <= 0:
+        return []
+    num_passes = -(-num_bits // radix_bits)
+    alt_bits = radix_bits - 1
+    num_alt = num_passes * radix_bits - num_bits
+    plan, shift = [], begin_bit
+    if alt_bits == 0 or num_alt > num_passes:
+        while shift < end_bit:
+            w = min(radix_bits, end_bit - shift)
+            plan.append((shift, w))
+            shift += w
+        return plan
+    for p in range(num_passes):
+        w = alt_bits if p < num_alt else radix_bits
+        plan.append((shift, w))
+        shift += w
+    return plan
+
+
+def _tile_histogram(digit_tiles: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """(T, n) digits -> (T, num_bins) int32 counts of each tile (CUB's
+    upsweep)."""
+    t = digit_tiles.shape[0]
+    dev = digit_tiles.device
+    flat = (digit_tiles + torch.arange(t, device=dev)[:, None] * num_bins)
+    counts = torch.zeros(t * num_bins, dtype=torch.int32, device=dev)
+    counts.scatter_add_(0, flat.reshape(-1),
+                        torch.ones(flat.numel(), dtype=torch.int32,
+                                   device=dev))
+    return counts.reshape(t, num_bins)
+
+
+def spine_scan(hist: torch.Tensor) -> torch.Tensor:
+    """Exclusive scan over the striped spine: hist (T, B) -> base (B, T)
+    int32, base[d, t] the first output row of digit d in tile t
+    (digit-major, tile-minor, CUB's spine layout)."""
+    spine = hist.T.reshape(-1).to(torch.int64)
+    base = torch.cumsum(spine, 0) - spine
+    return base.reshape(hist.shape[1], hist.shape[0]).to(torch.int32)
+
+
+def _tile_rank(digit_tiles: torch.Tensor) -> torch.Tensor:
+    """Stable rank of each row among the rows of its tile with its digit
+    (CUB's block rank), from a stable argsort of each tile and the start of
+    each run of equal digits."""
+    t, n = digit_tiles.shape
+    dev = digit_tiles.device
+    order = torch.argsort(digit_tiles, dim=1, stable=True)
+    sd = torch.gather(digit_tiles, 1, order)
+    pos = torch.arange(n, device=dev).expand(t, n)
+    is_start = torch.cat([torch.ones((t, 1), dtype=torch.bool, device=dev),
+                          sd[:, 1:] != sd[:, :-1]], dim=1)
+    run_start = torch.cummax(torch.where(is_start, pos, 0), dim=1).values
+    rank = torch.zeros((t, n), dtype=torch.int32, device=dev)
+    return rank.scatter_(1, order, (pos - run_start).to(torch.int32))
+
+
+def counting_pass_reference(digits: torch.Tensor, num_bins: int,
+                            tile_elems: int) -> torch.Tensor:
+    """One stable counting pass: digits (N,) -> each row's destination
+    (N,) int32, the spine base of its (digit, tile) plus its stable rank in
+    the tile (CUB's downsweep). N must be a multiple of tile_elems."""
+    n = digits.shape[0]
+    if n % tile_elems:
+        raise ValueError(f"{n} digits are not whole tiles of {tile_elems}")
+    dt = digits.reshape(n // tile_elems, tile_elems).to(torch.int64)
+    base = spine_scan(_tile_histogram(dt, num_bins))
+    tile_idx = torch.arange(dt.shape[0], device=dt.device)[:, None]
+    return (base[dt, tile_idx] + _tile_rank(dt)).reshape(-1)
+
+
+def _sort_limbs_reference(limbs, limb_bits, payloads, cfg):
+    """The reference engine's LSD sort: the limbs padded with 0xFFFFFFFF
+    to whole tiles (the pads sort last and stay there), then per limb,
+    least significant first, one counting pass per :func:`plan_passes`
+    pass, every limb and payload scattered by its destinations."""
+    n = limbs[0].shape[0]
+    tile = cfg.tile_elems
+    pad = -(-max(n, 1) // tile) * tile - n
+    dev = limbs[0].device
+    if pad:
+        ones = torch.full((pad,), -1, dtype=torch.int32,
+                          device=dev).view(torch.uint32)
+        limbs = [twiddle.cat([c, ones]) for c in limbs]
+        payloads = [twiddle.cat([p, torch.zeros(pad, dtype=p.dtype,
+                                                device=dev)])
+                    for p in payloads]
+    for k in range(len(limbs) - 1, -1, -1):
+        begin, end = limb_bits[k]
+        for shift, width in plan_passes(begin, end, cfg.radix_bits):
+            digits = hist_lib.digits(limbs[k], shift, width)
+            dest = counting_pass_reference(digits, 1 << width, tile)
+            limbs = apply_permutation(dest, limbs)
+            payloads = apply_permutation(dest, payloads)
+    return [c[:n] for c in limbs], [p[:n] for p in payloads]
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +475,7 @@ def _unflatten(spec, leaves):
 # ---------------------------------------------------------------------------
 
 
+@traced
 def sort(keys: torch.Tensor, *, descending: bool = False,
          begin_bit: int | None = None, end_bit: int | None = None,
          config: config_lib.SortConfig | None = None) -> torch.Tensor:
@@ -372,6 +496,7 @@ def sort(keys: torch.Tensor, *, descending: bool = False,
     return _limbs_to_key(limbs, keys.dtype, descending)
 
 
+@traced
 def sort_pairs(keys: torch.Tensor, values, *, descending: bool = False,
                begin_bit: int | None = None, end_bit: int | None = None,
                config: config_lib.SortConfig | None = None,
@@ -403,6 +528,7 @@ def sort_pairs(keys: torch.Tensor, values, *, descending: bool = False,
             _unflatten(spec, iter(out)))
 
 
+@traced
 def argsort(keys: torch.Tensor, *, descending: bool = False,
             begin_bit: int | None = None, end_bit: int | None = None,
             config: config_lib.SortConfig | None = None) -> torch.Tensor:
@@ -421,6 +547,7 @@ def argsort(keys: torch.Tensor, *, descending: bool = False,
     return perm
 
 
+@traced
 def sort_struct(key_columns, values=None, *, descending: bool = False,
                 config: config_lib.SortConfig | None = None,
                 stable: bool = True):
@@ -461,3 +588,117 @@ def sort_struct(key_columns, values=None, *, descending: bool = False,
     if values is None:
         return out_cols
     return out_cols, _unflatten(spec, iter(out))
+
+
+# ---------------------------------------------------------------------------
+# sort_large: one MSD partition on the kernels, then bucket sorts in batches
+# ---------------------------------------------------------------------------
+
+_SIGN = -(1 << 31)          # the sign bit of the int32 view
+_FLIPPED_MAX = (1 << 31) - 1  # 0xFFFFFFFF with its sign bit flipped
+_BATCH_KEYS = 1 << 26       # keys of one bucket batch, about
+
+
+def _hybrid_partition(keys: torch.Tensor, *, descending: bool, msd_bits: int,
+                      config: config_lib.SortConfig):
+    """Phase A: twiddle the keys and partition them, stably, by their top
+    ``msd_bits`` bits: one histogram launch and one stage pass through
+    ``kernels/pipeline.py::sort_limbs``, with the digit width of the
+    smallest one-pass partition (2, 4 or 8 bits: a width-aligned pass for
+    msd_bits 2, 4 and 8). Returns (the partitioned u32 bits, the bucket
+    bounds (2^msd_bits + 1,) int64: bucket d is rows [bounds[d],
+    bounds[d + 1]))."""
+    width = next((w for w in (2, 4, 8) if w >= msd_bits), 8)
+    cfg = config.replace(engine="radix", radix_bits=width)
+    bits = twiddle.twiddle_in(keys.contiguous(), descending)
+    (pb,), _ = kpipe.sort_limbs([bits], [(32 - msd_bits, 32)], [], cfg)
+    # the rows are in order of their top bits, so each bucket's first row
+    # is a binary search away; searched on the sign-flipped int32 view,
+    # whose order is the u32 order (torch on the card has no u32 search)
+    dev = pb.device
+    tops = (torch.arange(1 << msd_bits, dtype=torch.int64, device=dev)
+            << (32 - msd_bits)) + _SIGN
+    first = torch.searchsorted(pb.view(torch.int32) ^ _SIGN,
+                               tops.to(torch.int32))
+    n = torch.full((1,), pb.shape[0], dtype=torch.int64, device=dev)
+    return pb, torch.cat([first, n])
+
+
+def _hybrid_bucket_sort(pb: torch.Tensor, bounds: torch.Tensor, *, cap: int,
+                        group: int) -> torch.Tensor:
+    """Phase B: sort each bucket of the partitioned u32 bits ``pb``.
+
+    ``group`` buckets at a time are gathered into one (group, cap) batch
+    by one index tensor made from the bounds, the slots past each bucket's
+    count filled with the largest key; each row is sorted, and only its
+    first count slots go back. A real 0xFFFFFFFF key cannot be told from a
+    fill, but the first count slots still hold the bucket's keys (a
+    keys-only sort). The JAX package sorts the batch with ``jnp.sort``,
+    XLA's own sort outside any Pallas kernel; here ``torch.sort`` of the
+    sign-flipped int32 view does the same. cap must hold the largest
+    bucket and group divide the number of buckets."""
+    npad = pb.shape[0]
+    nb = bounds.shape[0] - 1
+    dev = pb.device
+    bounds = bounds.to(device=dev, dtype=torch.int64)
+    counts = bounds[1:] - bounds[:-1]
+    # reads past the last row land in fills, as JAX's padded source
+    src = torch.cat([pb.view(torch.int32) ^ _SIGN,
+                     torch.full((cap,), _FLIPPED_MAX, dtype=torch.int32,
+                                device=dev)])
+    out = torch.empty(npad + 1, dtype=torch.int32, device=dev)  # + a sink
+    lane = torch.arange(cap, device=dev)
+    for d0 in range(0, nb, group):
+        idx = bounds[d0:d0 + group, None] + lane
+        live = lane < counts[d0:d0 + group, None]
+        batch = torch.where(live, src[idx], _FLIPPED_MAX)
+        batch = torch.sort(batch, dim=-1).values
+        out[torch.where(live, idx, npad)] = batch
+    return (out[:npad] ^ _SIGN).view(torch.uint32)
+
+
+def _round_cap_fine(c: int) -> int:
+    """A bucket capacity rounded up with at most 1/16 slack (16 sizes an
+    octave), at least 256."""
+    c = max(int(c), 256)
+    q = 1 << max((c - 1).bit_length() - 4, 8)
+    return -(-c // q) * q
+
+
+@traced
+def sort_large(keys: torch.Tensor, *, descending: bool = False,
+               msd_bits: int | None = None,
+               config: config_lib.SortConfig | None = None) -> torch.Tensor:
+    """Keys-only sort of 32-bit keys in two phases, bit for bit the result
+    of :func:`sort`: one stable partition by the top ``msd_bits`` bits on
+    the histogram and stage kernels, then the 2^msd_bits buckets sorted in
+    batches of about 2^26 keys, whatever the skew (the memory-bounded
+    form). The largest bucket is read to the host once, to size the
+    batches (the two-phase protocol of CUB's temp-storage query).
+
+    Keys that are not 32 bits wide, and fewer than 2^22 keys when
+    ``msd_bits`` is None, go to :func:`sort`. An explicit ``msd_bits``
+    (1-16) forces the two phases; by default it is 4 below 2^28 keys and 8
+    from there. No gain over :func:`sort` is claimed (PERF.md)."""
+    if keys.dim() != 1:
+        raise ValueError(f"keys must be 1-D; got shape {tuple(keys.shape)}")
+    n = keys.shape[0]
+    if twiddle.bit_width(keys.dtype) != 32 or n == 0:
+        return sort(keys, descending=descending, config=config)
+    if msd_bits is None:
+        if n < (1 << 22):
+            return sort(keys, descending=descending, config=config)
+        msd_bits = 4 if n < (1 << 28) else 8
+    if not 1 <= msd_bits <= 16:
+        raise ValueError(f"msd_bits must be in [1, 16]; got {msd_bits}")
+    _check_device_n(n)
+    pb, bounds = _hybrid_partition(keys, descending=descending,
+                                   msd_bits=msd_bits,
+                                   config=config_lib.resolve(config))
+    nb = 1 << msd_bits
+    cap = _round_cap_fine(int((bounds[1:] - bounds[:-1]).max()))
+    group = max(1, min(nb, _BATCH_KEYS // cap))
+    while nb % group:
+        group -= 1
+    out_bits = _hybrid_bucket_sort(pb, bounds, cap=cap, group=group)
+    return twiddle.twiddle_out(out_bits, keys.dtype, descending=descending)

@@ -19,6 +19,7 @@ from cuda.radixsort_tpu_torch.ops.aggregate import _neighbour_differs
 from cuda.radixsort_tpu_torch.ops.filter import (filter_columns,
                                                  selection_vector)
 from cuda.radixsort_tpu_torch.ops.sort import sort
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 
 def _run_starts(keys: torch.Tensor) -> torch.Tensor:
@@ -31,6 +32,7 @@ def _run_starts(keys: torch.Tensor) -> torch.Tensor:
     return starts
 
 
+@traced
 def unique(keys: torch.Tensor,
            config: config_lib.SortConfig | None = None):
     """Collapse consecutive equal keys (cub::DeviceSelect::Unique).
@@ -52,6 +54,7 @@ def _run_lengths(starts: torch.Tensor, config):
     return sel, torch.where(idx < count, ends - sel, 0), count
 
 
+@traced
 def run_length_encode(keys: torch.Tensor,
                       config: config_lib.SortConfig | None = None):
     """Run-length encode (cub::DeviceRunLengthEncode::Encode).
@@ -64,6 +67,7 @@ def run_length_encode(keys: torch.Tensor,
     return twiddle.take(keys, sel.long()), lengths, count
 
 
+@traced
 def non_trivial_runs(keys: torch.Tensor,
                      config: config_lib.SortConfig | None = None):
     """Offsets and lengths of the runs longer than one element
@@ -78,6 +82,7 @@ def non_trivial_runs(keys: torch.Tensor,
     return offs, torch.where(idx < nruns, lens, 0), nruns
 
 
+@traced
 def distinct(keys: torch.Tensor,
              config: config_lib.SortConfig | None = None):
     """Sorted distinct values of any key tensor: radix sort, then unique.

@@ -16,18 +16,20 @@ import torch
 from cuda.radixsort_tpu_torch import config as config_lib
 from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.ops.aggregate import _neighbour_differs
-from cuda.radixsort_tpu_torch.ops.scan import plain_scan_fast, segmented_scan
+from cuda.radixsort_tpu_torch.ops.scan import (ENGINES, plain_scan_fast,
+                                               segmented_scan)
 from cuda.radixsort_tpu_torch.ops.sort import sort_struct
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 WINDOW_FNS = ("row_number", "rank", "dense_rank", "cumsum", "cummin",
               "cummax", "lag", "lead")
-# the reference's scan engines; the port's segmented_scan has one route per
-# dtype, so the name is checked and the route is the same
-SCAN_ENGINES = ("auto", "xla", "pallas")
+# the running aggregates' scan engine: ops/scan.py::segmented_scan's engine=
+SCAN_ENGINES = ENGINES
 
 _SCAN_OP = {"cumsum": "sum", "cummin": "min", "cummax": "max"}
 
 
+@traced
 def window(part: torch.Tensor, order: torch.Tensor, values, outputs, *,
            valid: torch.Tensor | None = None, descending: bool = False,
            scan_engine: str = "auto",
@@ -98,7 +100,8 @@ def window(part: torch.Tensor, order: torch.Tensor, values, outputs, *,
             out_cols[name] = segmented_scan(peer_heads.to(torch.int32),
                                             heads, "sum")
         elif fn in _SCAN_OP:
-            out_cols[name] = segmented_scan(sv[src], heads, _SCAN_OP[fn])
+            out_cols[name] = segmented_scan(sv[src], heads, _SCAN_OP[fn],
+                                            engine=scan_engine)
         else:
             v = sv[src]
             zero = torch.zeros((), dtype=v.dtype, device=dev)
@@ -113,6 +116,7 @@ def window(part: torch.Tensor, order: torch.Tensor, values, outputs, *,
     return spart, sorder, sv, out_cols, count
 
 
+@traced
 def window_table(cols: dict, partition_by: str, order_by: str, spec, *,
                  valid=None, descending: bool = False,
                  scan_engine: str = "auto", config=None):

@@ -19,8 +19,10 @@ from cuda.radixsort_tpu_torch.ops.scan import (_full, _resolve_op,
                                                segmented_scan)
 from cuda.radixsort_tpu_torch.parallel import comm
 from cuda.radixsort_tpu_torch.parallel.dsort import _shard_rows, axis_size
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 
+@traced
 def scan_by_key_distributed(keys: torch.Tensor, values: torch.Tensor,
                             op="sum", *, mesh, axis_name="x",
                             exclusive: bool = False, init=None,

@@ -38,6 +38,7 @@ from cuda.radixsort_tpu_torch.parallel.dsort import (_SENTINEL,
                                                       _padded_bits,
                                                       axis_size,
                                                       sort_distributed)
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 _U32 = 0xFFFFFFFF
 
@@ -73,6 +74,7 @@ def _himask(level: int) -> int:
     return (_U32 << (level + 4)) & _U32 if level + 4 < 32 else 0
 
 
+@traced
 def kth_value_distributed(keys: torch.Tensor, k, *, mesh, axis_name="x",
                           largest: bool = False, n: int | None = None):
     """Global k-th smallest (0-based; largest=True for the k-th largest) of
@@ -95,6 +97,7 @@ def kth_value_distributed(keys: torch.Tensor, k, *, mesh, axis_name="x",
                          largest)[0]
 
 
+@traced
 def top_k_distributed(keys: torch.Tensor, k: int, *, mesh, axis_name="x",
                       largest: bool = True, n: int | None = None):
     """Global top-k (values, global row indices) of a sharded array,
@@ -123,6 +126,7 @@ def top_k_distributed(keys: torch.Tensor, k: int, *, mesh, axis_name="x",
     return _keys_of_bits(tv, keys.dtype, largest), ti
 
 
+@traced
 def distinct_distributed(keys: torch.Tensor, *, mesh, axis_name="x",
                          cap: int | None = None, n: int | None = None):
     """Sorted distinct values of a sharded array. Returns (this rank's
@@ -151,6 +155,7 @@ def distinct_distributed(keys: torch.Tensor, *, mesh, axis_name="x",
             _gather_counts(ucnt, mesh, axis_name))
 
 
+@traced
 def groupby_quantile_distributed(keys, values, qs=(0.5,), *, mesh,
                                  axis_name="x", max_groups: int = 64,
                                  n: int | None = None):

@@ -36,6 +36,7 @@ from cuda.radixsort_tpu_torch.ops.merge import merge_sorted
 from cuda.radixsort_tpu_torch.ops.sort import sort, sort_pairs, sort_struct
 from cuda.radixsort_tpu_torch.parallel import comm
 from cuda.radixsort_tpu_torch.parallel import stats as stats_lib
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 _SIGN = -(1 << 31)
 _SENTINEL = -1  # 0xFFFFFFFF as int32 bits
@@ -326,6 +327,7 @@ def round_cap(c: int, quantum: int = 128) -> int:
     return 1 << (c - 1).bit_length()
 
 
+@traced
 def sort_distributed_sized(keys: torch.Tensor, *, mesh, axis_name="x",
                            descending: bool = False, n: int | None = None):
     """Two-phase sized distributed sort: measure the exchange, then run
@@ -441,6 +443,7 @@ def _gather_counts(c, mesh, axis_name) -> torch.Tensor:
                            comm.Axis(mesh, axis_name), tiled=True)
 
 
+@traced
 def sort_distributed(keys: torch.Tensor, *, mesh, axis_name="x",
                      cap: int | None = None, descending: bool = False,
                      rounds: int | None = None, n: int | None = None):
@@ -462,6 +465,7 @@ def sort_distributed(keys: torch.Tensor, *, mesh, axis_name="x",
             stats_lib.gather(st, mesh=mesh, axis_name=axis_name))
 
 
+@traced
 def sort_pairs_distributed(keys: torch.Tensor, values: torch.Tensor, *,
                            mesh, axis_name="x", cap: int | None = None,
                            descending: bool = False, n: int | None = None):
@@ -520,6 +524,7 @@ def make_mesh_2d(hosts: int, chips: int, host_axis: str = "host",
                             mesh_dim_names=(host_axis, chip_axis))
 
 
+@traced
 def sort_distributed_hier(keys: torch.Tensor, *, mesh, host_axis="host",
                           chip_axis="chip", host_cap: int | None = None,
                           chip_cap: int | None = None,

@@ -35,6 +35,7 @@ from cuda.radixsort_tpu_torch.parallel.dsort import (_dest_order, _lanes,
                                                       _shard_rows,
                                                       _shard_valid,
                                                       axis_size, round_cap)
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 
 # a join's build side of at most this many rows is broadcast (probed on
@@ -44,6 +45,7 @@ from cuda.radixsort_tpu_torch.parallel.dsort import (_dest_order, _lanes,
 JOIN_BROADCAST_ROWS = 1 << 20
 
 
+@traced
 def exchange_rows(columns, dest, ndev: int, axis_name, cap: int, *, mesh):
     """Route each local row to rank dest[row]. columns: list of (S,)
     tensors.
@@ -133,6 +135,7 @@ def _groupby_inputs(keys, values, agg, n, ndev, axis_name, mesh):
     return keys, values, agg, n, s
 
 
+@traced
 def groupby_distributed(keys: torch.Tensor, values: torch.Tensor, *, mesh,
                         axis_name="x", agg: str = "sum",
                         cap: int | None = None,
@@ -191,6 +194,7 @@ def groupby_exchange_cap(keys: torch.Tensor, values: torch.Tensor, *, mesh,
                      comm.Axis(mesh, axis_name))
 
 
+@traced
 def groupby_distributed_sized(keys: torch.Tensor, values: torch.Tensor, *,
                               mesh, axis_name="x", agg: str = "sum",
                               config: config_lib.SortConfig | None = None,
@@ -224,6 +228,7 @@ def _build_shard(build_keys, build_vals, ndev, d):
     return bk, bv, nb, sb
 
 
+@traced
 def join_distributed_broadcast(build_keys: torch.Tensor,
                                build_vals: torch.Tensor,
                                probe_keys: torch.Tensor, *, mesh,
@@ -276,6 +281,7 @@ def join_exchange_caps(build_keys: torch.Tensor, probe_keys: torch.Tensor, *,
     return caps[0], caps[1]
 
 
+@traced
 def join_distributed_hash(build_keys: torch.Tensor, build_vals: torch.Tensor,
                           probe_keys: torch.Tensor, *, mesh, axis_name="x",
                           build_cap: int | None = None,
@@ -315,6 +321,7 @@ def join_distributed_hash(build_keys: torch.Tensor, build_vals: torch.Tensor,
             stats_lib.gather(st, mesh=mesh, axis_name=axis_name))
 
 
+@traced
 def join_distributed_sized(build_keys, build_vals, probe_keys, *, mesh,
                            axis_name="x",
                            config: config_lib.SortConfig | None = None,
@@ -331,6 +338,7 @@ def join_distributed_sized(build_keys, build_vals, probe_keys, *, mesh,
     return ok, ov, oi, cnt, (bcap, pcap), st
 
 
+@traced
 def join_distributed(build_keys, build_vals, probe_keys, *, mesh,
                      axis_name="x",
                      config: config_lib.SortConfig | None = None,

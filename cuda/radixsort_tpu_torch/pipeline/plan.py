@@ -46,6 +46,7 @@ from cuda.radixsort_tpu_torch.ops.sort import sort_struct
 from cuda.radixsort_tpu_torch.ops.window import window_table
 from cuda.radixsort_tpu_torch.parallel.shuffle import JOIN_BROADCAST_ROWS
 from cuda.radixsort_tpu_torch.table import Table, _sharded
+from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 
 class _Stage(NamedTuple):
@@ -207,6 +208,7 @@ class Query:
         return "\n -> ".join(lines)
 
     # -- execution -----------------------------------------------------------
+    @traced
     def run(self, *, mesh=None, axis_name: str = "x", timed: bool = False,
             config: config_lib.SortConfig | None = None):
         """Execute the plan on the source table's device. Returns (table,
@@ -249,15 +251,18 @@ def _cols(t: Table) -> dict:
     return {k: t[k] for k in t.column_names}
 
 
+@traced
 def _exec_where(t: Table, count, st: _Stage, config):
     mask = st.args[0](t) & _valid_mask(t, count)
     return t.filter(mask, config=config)
 
 
+@traced
 def _exec_select(t: Table, count, st: _Stage, config):
     return t.select(st.args[0]), count
 
 
+@traced
 def _exec_with_column(t: Table, count, st: _Stage, config):
     name, fn = st.args
     return t.with_column(name, fn(t)), count
@@ -316,11 +321,13 @@ def _join_impl(cols: dict, count, st: _Stage, build_cols: dict, config):
     return out, cnt
 
 
+@traced
 def _exec_join(t: Table, count, st: _Stage, config):
     out, cnt = _join_impl(_cols(t), count, st, _cols(st.args[0]), config)
     return Table(out), cnt
 
 
+@traced
 def _exec_groupby(t: Table, count, st: _Stage, config):
     key, value, agg = st.args
     gk, gv, cnt = groupby(t[key], t[value], agg=agg,
@@ -359,6 +366,7 @@ def _groupby_agg_cols(cols, keys, aggs, valid, config):
     return out, cnt
 
 
+@traced
 def _exec_groupby_agg(t: Table, count, st: _Stage, config):
     keys, aggs = st.args
     out, cnt = _groupby_agg_cols(_cols(t), keys, aggs, _valid_mask(t, count),
@@ -366,6 +374,7 @@ def _exec_groupby_agg(t: Table, count, st: _Stage, config):
     return Table(out), cnt
 
 
+@traced
 def _exec_quantiles(t: Table, count, st: _Stage, config):
     key, value, qs, names, _ = st.args  # max_groups is distributed-only
     gk, qcols, cnt = groupby_quantile(t[key], t[value], qs,
@@ -376,6 +385,7 @@ def _exec_quantiles(t: Table, count, st: _Stage, config):
     return Table(out), cnt
 
 
+@traced
 def _exec_distinct(t: Table, count, st: _Stage, config):
     keys = st.args[0] or t.column_names
     kc, _, cnt = groupby_multi(tuple(t[k] for k in keys), (), (),
@@ -383,6 +393,7 @@ def _exec_distinct(t: Table, count, st: _Stage, config):
     return Table(dict(zip(keys, kc))), cnt
 
 
+@traced
 def _exec_window(t: Table, count, st: _Stage, config):
     part, okey, spec, desc = st.args
     out, cnt = window_table(_cols(t), part, okey, spec,
@@ -391,6 +402,7 @@ def _exec_window(t: Table, count, st: _Stage, config):
     return Table(out), cnt
 
 
+@traced
 def _exec_order_by(t: Table, count, st: _Stage, config):
     keys, descending = st.args
     keys = (keys,) if isinstance(keys, str) else tuple(keys)
@@ -407,6 +419,7 @@ def _exec_order_by(t: Table, count, st: _Stage, config):
     return Table(out), count
 
 
+@traced
 def _exec_limit(t: Table, count, st: _Stage, config):
     return t, torch.clamp_max(count, st.args[0])
 
@@ -475,6 +488,7 @@ def _auto_route_quantiles(stages, src, n, mesh, axis_name):
     return out
 
 
+@traced
 def _run_distributed(q: Query, mesh, axis_name, config):
     from cuda.radixsort_tpu_torch.parallel import comm
     from cuda.radixsort_tpu_torch.parallel.dsort import _gather_counts
@@ -550,6 +564,7 @@ def _prefix(cols, cnt) -> torch.Tensor:
     return _first_rows(next(iter(cols.values())), cnt)
 
 
+@traced
 def _dist_where(cols, cnt, pred, config):
     """Shard-local stable compaction by pred & positional validity."""
     mask = pred(Table(cols)) & _prefix(cols, cnt)
@@ -565,6 +580,7 @@ def _exchange_by(cols, names, dest, ax, mesh, axis_name):
     return dict(zip(names, recv)), rvalid
 
 
+@traced
 def _dist_groupby(cols, cnt, st, ax, mesh, axis_name, config):
     """The single-key group-by as the multi form with one key and one
     aggregate; a median cannot travel as a partial, so its raw rows
@@ -585,6 +601,7 @@ def _dist_groupby(cols, cnt, st, ax, mesh, axis_name, config):
     return _dist_groupby_agg(cols, cnt, st2, ax, mesh, axis_name, config)
 
 
+@traced
 def _dist_join_hash(cols, cnt, st, build, ax, mesh, axis_name, config):
     """Hash-localised join: probe rows hash-exchange and each rank keeps
     the build rows it owns, so every key lives on one rank and the local
@@ -612,6 +629,7 @@ def _dist_join_hash(cols, cnt, st, build, ax, mesh, axis_name, config):
     return _join_impl(rcols, rcnt, st2, blocal, config)
 
 
+@traced
 def _dist_quantiles(cols, cnt, st, ax, mesh, axis_name, config):
     """Quantiles cannot travel as partials: the raw (key, value) rows
     hash-exchange. With a ``max_groups`` hint no row moves: histogram
@@ -649,6 +667,7 @@ def _dist_quantiles(cols, cnt, st, ax, mesh, axis_name, config):
     return out, c2
 
 
+@traced
 def _dist_distinct(cols, cnt, st, ax, mesh, axis_name, config):
     """Two-phase dedup: local distinct, hash-of-key-tuple exchange of the
     survivors, final distinct per rank."""
@@ -667,6 +686,7 @@ def _dist_distinct(cols, cnt, st, ax, mesh, axis_name, config):
     return dict(zip(keys, k2)), c2
 
 
+@traced
 def _dist_window(cols, cnt, st, ax, mesh, axis_name, config):
     """Whole rows hash-exchange by partition key (every partition lands on
     one rank), then the single-GPU window runs per rank."""
@@ -680,6 +700,7 @@ def _dist_window(cols, cnt, st, ax, mesh, axis_name, config):
                         descending=desc, config=config)
 
 
+@traced
 def _dist_groupby_agg(cols, cnt, st, ax, mesh, axis_name, config):
     """Two-phase multi-key multi-aggregate group-by: local partials, a
     hash-of-key-tuple exchange, a final re-aggregation. A count partial
@@ -739,6 +760,7 @@ def _dist_groupby_agg(cols, cnt, st, ax, mesh, axis_name, config):
     return out, c2
 
 
+@traced
 def _dist_gather(cols, cnt, ax):
     """Gather the sharded running result to a replicated, compacted view
     (order_by/limit need the global view; meant for small, aggregated

@@ -52,6 +52,11 @@ def unsigned_dtype(dtype: torch.dtype) -> torch.dtype:
     return _UNSIGNED_OF[dtype]
 
 
+def is_supported(dtype: torch.dtype) -> bool:
+    """True for the twelve key dtypes the twiddle maps."""
+    return dtype in _UNSIGNED_OF
+
+
 def signed_dtype(dtype: torch.dtype) -> torch.dtype:
     """The signed integer dtype of the same width."""
     return _SIGNED_OF_WIDTH[bit_width(dtype)]

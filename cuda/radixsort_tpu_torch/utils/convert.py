@@ -73,12 +73,13 @@ def tree_from_numpy(tree, device="cuda"):
     return from_numpy(tree, device)
 
 
-# JAX engine -> port engine. 'pallas' and 'reference' are the LSD radix
-# pipeline; 'xla' is a stable lax.sort, which any stable engine reproduces
-# bit for bit, so it maps to 'auto'. 'bitonic' maps to the port's network
-# engine, which runs the JAX engine's default network (its log_tile of 16,
-# or 15 from 3 planes up) and so lands unstable ties where it does.
-_ENGINE_OF = {"auto": "auto", "pallas": "radix", "reference": "radix",
+# JAX engine -> port engine. 'pallas' is the LSD radix pipeline and
+# 'reference' the plain one of the same name; 'xla' is a stable lax.sort,
+# which any stable engine reproduces bit for bit, so it maps to 'auto'.
+# 'bitonic' maps to the port's network engine, which runs the JAX engine's
+# default network (its log_tile of 16, or 15 from 3 planes up) and so lands
+# unstable ties where it does.
+_ENGINE_OF = {"auto": "auto", "pallas": "radix", "reference": "reference",
               "xla": "auto", "bitonic": "bitonic"}
 
 
@@ -87,14 +88,16 @@ def config_from_jax(cfg) -> config_lib.SortConfig:
 
     The digit width follows the JAX Pallas pipeline's clamp (2-bit stages
     for radix_bits <= 3, 4-bit up to 7) and keeps 8 where JAX asks for 8 or
-    more. The TPU geometry has no meaning here and is dropped: tile_rows
+    more; the reference engine keeps JAX's width, as both honour any. The
+    TPU geometry has no meaning here and is dropped: tile_rows
     and stage_rows are the radix kernels' VMEM tiles, and log_tile and
     log_merge the network kernels' VMEM blocks (a JAX config that sets
     log_tile also changes its network, which the port does not follow)."""
     rb = cfg.radix_bits
-    width = 2 if rb <= 3 else (4 if rb <= 7 else 8)
-    return config_lib.preset((9, 0)).replace(radix_bits=width,
-                                              engine=_ENGINE_OF[cfg.engine])
+    engine = _ENGINE_OF[cfg.engine]
+    if engine != "reference":
+        rb = 2 if rb <= 3 else (4 if rb <= 7 else 8)
+    return config_lib.preset((9, 0)).replace(radix_bits=rb, engine=engine)
 
 
 def blocks(x, ndev: int) -> list:

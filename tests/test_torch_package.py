@@ -1,6 +1,8 @@
 """Package boundary of the port: it imports without JAX, never names it,
-and its kernel build fails loudly where nvcc is absent."""
+its kernel build fails loudly where nvcc is absent, and every public name
+of the JAX package has a counterpart in it but a stated TPU-only set."""
 
+import ast
 import os
 import pathlib
 import re
@@ -144,5 +146,80 @@ def test_version_and_surface():
                  "run_length_encode", "non_trivial_runs", "distinct",
                  "digit_histogram", "histogram_even", "histogram_range",
                  "comparator_sort", "comparator_argsort", "sort_external",
-                 "sort_external_pairs"):
+                 "sort_external_pairs", "sort_large", "best_engine"):
         assert hasattr(rt, name)
+
+
+# Public names of the JAX package that the port leaves out, each TPU-only:
+# (module path under the package, name) -> the reason.
+_VMEM = "a TPU tile constant (lanes, sublane rows, VMEM tile and chunk sizes)"
+TPU_ONLY = {
+    **{("__init__.py", "LANES"): _VMEM, ("config.py", "LANES"): _VMEM,
+       ("kernels/bitonic.py", "LANES"): _VMEM,
+       ("kernels/bitonic.py", "LOG_LANES"): _VMEM,
+       ("kernels/tiles.py", "LANES"): _VMEM},
+    **{("kernels/histogram.py", n): _VMEM for n in ("NB", "NSTAGES", "ROWS")},
+    **{("kernels/pipeline.py", n): _VMEM for n in ("ROWS", "TILE")},
+    **{("kernels/stage.py", n): _VMEM
+       for n in ("CHUNK", "NB", "ROWS", "SROWS", "W")},
+    **{("kernels/tiles.py", n): "the TPU's in-row rank helpers: no "
+       "pallas_call, and the card ranks with shared memory and shuffles"
+       for n in ("NB", "bucket_count_table", "field", "field_dyn",
+                 "inrow_sort", "lane_inclusive_prefix", "packed_words",
+                 "row_tables")},
+    ("config.py", "device_kind"): "the TPU generation string",
+    ("config.py", "generation"): "the TPU generation presets",
+    ("kernels/bitonic.py", "resolve_log_merge"):
+        "the TPU merge kernel's VMEM block",
+    ("kernels/pipeline.py", "stage_width"):
+        "the TPU stage kernel's 2- or 4-bit clamp (the card runs 2, 4 and 8; "
+        "utils/convert.py::config_from_jax applies the clamp)",
+    ("kernels/pipeline.py", "tile_elems"):
+        "the TPU stage kernel's VMEM tile (the card's is "
+        "SortConfig.tile_elems)",
+    ("kernels/pipeline.py", "sort_limbs_pallas"):
+        "the Pallas entry name; the port's is kernels/pipeline.py::sort_limbs",
+    ("kernels/scan.py", "segmented_scan_pallas"):
+        "the Pallas entry name; the port's is kernels/scan.py::segmented_scan",
+    ("utils/profiling.py", "DEFAULT_HBM"):
+        "a TPU's memory rate as the default; the port has no default rate",
+}
+
+
+def _public_names(path: pathlib.Path) -> set:
+    """Names a module defines at its top level (functions, classes,
+    assignments) and, in a package's __init__.py, the names it imports
+    from the package itself (its re-exports); none with a leading _."""
+    tree = ast.parse(path.read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            names |= {e.id for t in targets for e in ast.walk(t)
+                      if isinstance(e, ast.Name)}
+        elif (path.name == "__init__.py" and isinstance(node, ast.ImportFrom)
+              and (node.module or "").startswith("cuda.radixsort_tpu")):
+            names |= {a.asname or a.name for a in node.names}
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_public_jax_name_has_a_port_counterpart():
+    jax_pkg = REPO / "cuda" / "radixsort_tpu"
+    modules = sorted(jax_pkg.rglob("*.py"))
+    assert len(modules) >= 40
+    missing, seen = [], set()
+    for path in modules:
+        rel = path.relative_to(jax_pkg).as_posix()
+        port = PKG / rel
+        theirs = _public_names(path)
+        seen |= {(rel, n) for n in theirs}
+        mine = _public_names(port) if port.exists() else set()
+        missing += [(rel, n) for n in sorted(theirs - mine)
+                    if (rel, n) not in TPU_ONLY]
+    assert missing == [], missing
+    # every exemption still names a public JAX name
+    assert set(TPU_ONLY) <= seen, set(TPU_ONLY) - seen
