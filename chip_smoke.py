@@ -9,6 +9,22 @@ Phases, each of which fails loudly (non-zero exit, no result line):
   1. device: a CUDA card must be present; its name and power limit are printed;
   2. build: the five CUDA kernels are built from the repository's own sources;
      then `python -m cuda.radixsort_tpu_torch` (its self-test) must pass;
+  2a. card_ops: ``tests/torch_surface.py::probe_card_ops`` tries 46 torch
+     ops on uint16/32/64 tensors on the card; the ones it refuses must be
+     the committed CARD_UNSIGNED_GAPS (the CPU tests hold the port to them);
+  2b. surface: every case of ``tests/torch_surface.py`` (every public
+     function and method of the swept modules: the sort family over 12 key
+     and 10 payload dtypes, both orders, bit ranges, the radix, network and
+     reference engines; the operators over u32, i32 and f32 columns; the
+     query layer, the comparators, every CUB and thrust entry point and the
+     flagships) at each of its sizes (1, 7, the stage tile +- 1, 2^16 + 3,
+     2^19 + 5) on the card and, on the same inputs, through the port on the
+     CPU: bit for bit but float sums and moments (within F32_TOL of the
+     input's sum of |x|, of the largest x^2) and NaN in min, max and
+     quantiles (by value); every result tensor on the card and each case's
+     kernels launched (counters zeroed just before the card's call). Every
+     case runs; the failures are listed together. The coverage rule: every
+     public name is in a case or in EXCLUDED with a reason;
   3. kernels: digit_histograms and partition_stage on the card against their
      plain PyTorch versions on the same inputs, bit for bit (tolerance 0); the
      histogram also on random, constant, 90%-one-key and Zipf-like keys at
@@ -780,6 +796,103 @@ def phase_slice(gen: torch.Generator) -> dict:
     log("[slice] descending, end_bit=16, f32 -0.0/NaN pairs and argsort == oracle "
         "at 2^20")
     return launches
+
+
+def load_surface():
+    """tests/torch_surface.py, loaded by path (the port must be loaded
+    first: the table imports it)."""
+    path = os.path.join(HERE, "tests", "torch_surface.py")
+    spec = importlib.util.spec_from_file_location("torch_surface", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_card_ops() -> dict:
+    """The card's torch on uint16/32/64 tensors: the operators it refuses
+    must be the committed CARD_UNSIGNED_GAPS, which the CPU tests hold the
+    port to (tests/test_torch_card_ops.py)."""
+    surf = load_surface()
+    got = surf.probe_card_ops("cuda")
+    log(f"[card_ops] {len(surf.PROBE_OPS)} torch ops on uint16/32/64 CUDA "
+        f"tensors (torch {torch.__version__}): {len(got)} refused: "
+        f"{', '.join(got)}")
+    expect(got == surf.CARD_UNSIGNED_GAPS,
+           "the card's torch refuses other unsigned ops than "
+           "tests/torch_surface.py::CARD_UNSIGNED_GAPS: card "
+           f"{json.dumps(got)}, table {json.dumps(surf.CARD_UNSIGNED_GAPS)}")
+    return got
+
+
+def phase_surface() -> dict:
+    """Every case of tests/torch_surface.py at each of its sizes on the
+    card and, on the same inputs, through the port on the CPU (the kernels'
+    plain versions): the results must agree under the case's rule (bit for
+    bit but float reductions), every result tensor must be on the card, and
+    the case's kernels must have launched (counters zeroed just before the
+    card's call, read just after). Every case runs; the failures are listed
+    together. The coverage rule first: every public name of the swept
+    modules is in a case or in EXCLUDED."""
+    surf = load_surface()
+    t0 = time.perf_counter()
+    missing, stale, stale_excluded = surf.uncovered()
+    expect(not (missing or stale or stale_excluded),
+           f"surface coverage: public names in no case {missing}; covers "
+           f"that name nothing {stale}; EXCLUDED names nothing "
+           f"{stale_excluded}")
+    mods = kernel_modules()
+    cases = surf.all_cases()
+    failures, runs, card_s, cpu_s = [], 0, 0.0, 0.0
+    launches = {k: 0 for k in KERNELS}
+    slowest = []
+    for case in cases:
+        for n in case.sizes:
+            runs += 1
+            inputs = surf.case_inputs(case, n)
+            try:
+                t = time.perf_counter()
+                want = surf.run_case(case, n, "cpu", inputs)
+                t_cpu = time.perf_counter() - t
+                torch.cuda.synchronize()
+                for m, attr in mods.values():
+                    setattr(m, attr, 0)
+                t = time.perf_counter()
+                got = surf.run_case(case, n, "cuda", inputs)
+                torch.cuda.synchronize()
+                t_card = time.perf_counter() - t
+                counts = {k: getattr(m, attr) for k, (m, attr) in mods.items()}
+            except Exception as err:  # listed below; the phase then fails
+                failures.append(f"{case.id} n={n}: {type(err).__name__}: "
+                                f"{str(err)[:400]}")
+                continue
+            cpu_s, card_s = cpu_s + t_cpu, card_s + t_card
+            slowest.append((t_cpu + t_card, f"{case.id} n={n}"))
+            for k, c in counts.items():
+                launches[k] += c
+            diff = surf.compare(case, got, want, inputs)
+            if diff:
+                failures.append(f"{case.id} n={n}: {diff}")
+            if "cpu" in surf.devices_of(got):
+                failures.append(f"{case.id} n={n}: a result tensor is on the CPU")
+            idle = [k for k in case.needs if counts[k] == 0]
+            if n > 1 and idle:
+                failures.append(f"{case.id} n={n}: {idle} never launched: {counts}")
+    secs = time.perf_counter() - t0
+    names = len(surf.swept_names())
+    slowest.sort(reverse=True)
+    log(f"[surface] host CPU {cpu_s:.1f} s, card {card_s:.1f} s; slowest: "
+        + "; ".join(f"{w} {s:.2f} s" for s, w in slowest[:5]))
+    log(f"[surface] launches over the phase: {launches}")
+    expect(not failures, f"[surface] {len(failures)} of {runs} cases failed:\n"
+           + "\n".join(failures))
+    expect(all(launches[k] > 0 for k in KERNELS),
+           f"[surface] a kernel never launched in the phase: {launches}")
+    log(f"[surface] {runs} cases over {names} public names: card == CPU "
+        f"({len(cases)} calls x their sizes; {len(surf.EXCLUDED)} names "
+        f"excluded with a reason) in {secs:.1f} s")
+    return {"cases": runs, "names": names, "seconds": secs,
+            "launches": launches}
 
 
 def _scan_case(values, flags, op) -> float:
@@ -3384,6 +3497,8 @@ def main() -> int:
     kind, smi = phase_device()
     load_port()
     phase_build()
+    card_ops = phase_card_ops()
+    surface = phase_surface()
     phase_self_test()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -3640,7 +3755,8 @@ def main() -> int:
         "compat_paths_ms": compat_ms,
         "external_paths_s": external_s,
         "distributed_paths_ms": dist_ms,
-        "sort_2_31_ms": TIMES_2_31["sort_ms"]}
+        "sort_2_31_ms": TIMES_2_31["sort_ms"],
+        "surface": surface, "card_unsigned_gaps": card_ops}
     for k in record["kernels"]:
         k["launches_distributed"] = dist_launches.get(k["name"], 0)
     if ab is not None:

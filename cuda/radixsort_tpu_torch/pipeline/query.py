@@ -42,7 +42,7 @@ def filter_sort_join(probe_keys: torch.Tensor, probe_vals: torch.Tensor,
     n = probe_keys.shape[0]
     dev = probe_keys.device
     fcfg = compaction_config(config)
-    (fk, fv), nf = filter_columns(probe_vals > threshold,
+    (fk, fv), nf = filter_columns(twiddle.greater(probe_vals, threshold),
                                   (probe_keys, probe_vals), config=fcfg)
     # the join sees every probe row; matches of rows the filter dropped
     # (probe index >= nf) are compacted away after it
@@ -99,7 +99,7 @@ def filter_sort_join_distributed(probe_keys: torch.Tensor,
     bk = build_keys[ax.index * sb:(ax.index + 1) * sb]
     bvals = build_vals[ax.index * sb:(ax.index + 1) * sb]
     # 1. local filter (rows [0, nf) valid)
-    (fk, fv), nf = filter_columns(probe_vals > threshold,
+    (fk, fv), nf = filter_columns(twiddle.greater(probe_vals, threshold),
                                   (probe_keys, probe_vals), config=config)
     pvalid = torch.arange(sp, device=dev) < nf
     # 2. hash exchange of the filtered probe rows and the build rows

@@ -16,6 +16,8 @@ way.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 _UNSIGNED_OF = {
@@ -108,6 +110,21 @@ def take(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 def flip(t: torch.Tensor) -> torch.Tensor:
     """t reversed along its first axis."""
     return torch.flip(full_view(t), [0]).view(t.dtype)
+
+
+def greater(t: torch.Tensor, scalar) -> torch.Tensor:
+    """t > scalar as numbers, for every dtype: a dtype in PARTIAL is
+    compared through an int64 of the same order (an integer exceeds x when
+    it exceeds floor(x))."""
+    if t.dtype not in PARTIAL:
+        return t > scalar
+    width = bit_width(t.dtype)
+    bound = math.floor(scalar)
+    if not 0 <= bound < (1 << width) - 1:
+        return torch.full(t.shape, bound < 0, dtype=torch.bool, device=t.device)
+    if width < 64:
+        return (signed_view(t).to(torch.int64) & ((1 << width) - 1)) > bound
+    return (signed_view(t) ^ sign_min(64)) > bound + sign_min(64)
 
 
 def twiddle_in(keys: torch.Tensor, descending: bool = False) -> torch.Tensor:

@@ -49,6 +49,14 @@ def moment_atol(agg, values):
     return {"var": big, "std": np.sqrt(big)}.get(agg, F32_TOL)
 
 
+def _jax_valid(valid, n):
+    """JAX's valid= for a port call given ``valid`` (None: every row).
+    Every row valid is the same group-by as no mask, and one JAX program
+    per aggregate and dtype serves both the masked and unmasked cases, so
+    the JAX side always passes a mask."""
+    return jnp.asarray(np.ones(n, bool) if valid is None else valid)
+
+
 def _data(rng, n=N):
     keys = rng.integers(0, 97, size=n).astype(np.uint32)
     ints = rng.integers(-2**31, 2**31, size=n, dtype=np.int64).astype(np.int32)
@@ -63,7 +71,7 @@ def test_groupby_matches_jax(agg, masked):
     rng = np.random.default_rng(len(agg) + 10 * masked)
     keys, ints, floats = _data(rng)
     valid = rng.random(N) < 0.7 if masked else None
-    jv = None if valid is None else jnp.asarray(valid)
+    jv = _jax_valid(valid, N)
     tv = None if valid is None else from_numpy(valid, device="cpu")
     # int32 values (sums wrap) for the exact aggregates, f32 for the moments
     vals = ints if agg in ("sum", "count", "min", "max") else floats
@@ -102,7 +110,7 @@ def test_groupby_multi_matches_jax(masked):
     vcols = (ints, ints, floats, floats, floats)
     want = rs.groupby_multi((jnp.asarray(k1), jnp.asarray(k2)),
                             tuple(jnp.asarray(v) for v in vcols), aggs,
-                            valid=None if valid is None else jnp.asarray(valid))
+                            valid=_jax_valid(valid, N))
     got = rt.groupby_multi((from_numpy(k1, device="cpu"), from_numpy(k2, device="cpu")),
                            tuple(from_numpy(v, device="cpu") for v in vcols), aggs,
                            valid=None if valid is None else from_numpy(valid, device="cpu"))
@@ -191,7 +199,7 @@ def test_groupby_half_moments_within_derived_bound(dtype, masked, agg):
     rng = np.random.default_rng(["mean", "var", "std"].index(agg)
                                 + 3 * masked + 6 * (dtype == "bfloat16"))
     keys, vals, valid = _half_data(rng, HALF[dtype], masked)
-    jv = jnp.asarray(valid) if masked else None
+    jv = _jax_valid(valid, N)
     tv = from_numpy(valid, device="cpu") if masked else None
     want = rs.groupby(jnp.asarray(keys), jnp.asarray(vals), agg=agg, valid=jv)
     got = rt.groupby(from_numpy(keys, device="cpu"), from_numpy(vals, device="cpu"), agg=agg, valid=tv)
@@ -230,7 +238,7 @@ def test_groupby_half_quantiles_within_one_ulp(dtype, masked):
     rng = np.random.default_rng(20 + masked + 2 * (dtype == "bfloat16"))
     keys, vals, valid = _half_data(rng, HALF[dtype], masked)
     qs = (0.1, 0.25, 0.5, 0.9)
-    jv = jnp.asarray(valid) if masked else None
+    jv = _jax_valid(valid, N)
     tv = from_numpy(valid, device="cpu") if masked else None
     want = rs.groupby_quantile(jnp.asarray(keys), jnp.asarray(vals), qs,
                                valid=jv)

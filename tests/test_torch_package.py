@@ -2,7 +2,6 @@
 its kernel build fails loudly where nvcc is absent, and every public name
 of the JAX package has a counterpart in it but a stated TPU-only set."""
 
-import ast
 import os
 import pathlib
 import re
@@ -13,6 +12,7 @@ import pytest
 import torch
 
 import cuda.radixsort_tpu_torch as rt
+from torch_surface import public_names as _public_names
 from cuda.radixsort_tpu_torch.kernels import bitonic, histogram, scan, stage
 from cuda.radixsort_tpu_torch.utils import build
 
@@ -184,27 +184,6 @@ TPU_ONLY = {
     ("utils/profiling.py", "DEFAULT_HBM"):
         "a TPU's memory rate as the default; the port has no default rate",
 }
-
-
-def _public_names(path: pathlib.Path) -> set:
-    """Names a module defines at its top level (functions, classes,
-    assignments) and, in a package's __init__.py, the names it imports
-    from the package itself (its re-exports); none with a leading _."""
-    tree = ast.parse(path.read_text())
-    names = set()
-    for node in tree.body:
-        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
-                             ast.ClassDef)):
-            names.add(node.name)
-        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
-            targets = (node.targets if isinstance(node, ast.Assign)
-                       else [node.target])
-            names |= {e.id for t in targets for e in ast.walk(t)
-                      if isinstance(e, ast.Name)}
-        elif (path.name == "__init__.py" and isinstance(node, ast.ImportFrom)
-              and (node.module or "").startswith("cuda.radixsort_tpu")):
-            names |= {a.asname or a.name for a in node.names}
-    return {n for n in names if not n.startswith("_")}
 
 
 def test_every_public_jax_name_has_a_port_counterpart():

@@ -23,7 +23,8 @@ import cuda.radixsort_tpu_torch as rt
 from cuda.radixsort_tpu_torch.models import flagships as tflag
 from cuda.radixsort_tpu_torch.pipeline.query import QueryStats
 from cuda.radixsort_tpu_torch.pipeline.query import filter_sort_join as t_fsj
-from cuda.radixsort_tpu_torch.utils.convert import table_from_numpy, to_numpy
+from cuda.radixsort_tpu_torch.utils.convert import (from_numpy,
+                                                    table_from_numpy, to_numpy)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 N, NB = 1500, 120
@@ -195,6 +196,21 @@ def test_filter_sort_join_matches_jax(threshold):
         assert_same(g, w)
 
 
+def test_filter_sort_join_unsigned_values_match_jax():
+    """u32 probe values: the filter compares them as numbers (no uint32
+    `>`, which neither CPU torch nor the card's torch has)."""
+    pk, pv, bk, bv = _fsj_data(5)
+    pv = (pv.astype(np.int64) * 4_000_000 + 7).astype(np.uint32)  # past 2^31
+    want = j_fsj(*[jnp.asarray(a) for a in (pk, pv, bk, bv)], 2**31 + 5)
+    got = t_fsj(*[from_numpy(a, device="cpu") for a in (pk, pv, bk, bv)],
+                2**31 + 5)
+    c = int(want[3])
+    assert 0 < c < N
+    for g, w in zip(got[:3], want[:3]):
+        assert_same(g[:c], np.asarray(w)[:c])
+    assert_same(got[3], want[3])
+
+
 @pytest.mark.parametrize("recipe,sizes", [
     ("filter_sort_join_query", (4096, 256)), ("table_query", (4096, 256)),
     ("window_pipeline", (4096,))])
@@ -217,7 +233,8 @@ def test_query_flagships_match_jax(recipe, sizes):
 
 
 def test_self_test_entry_point_on_the_cpu():
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    # one torch thread, as the test workers (tests/test_torch_card_ops.py)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "cuda.radixsort_tpu_torch", "--device", "cpu"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)

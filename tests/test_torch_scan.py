@@ -267,11 +267,11 @@ def test_lookback_carry_is_the_left_fold_from_the_last_head(data, geometry):
     for j in range(n):
         last_head = j if heads[j] else last_head
         inc.append(_left_fold(agg[last_head:j + 1]))
+    # ("agg", value, the value it publishes once its lookback is done)
+    status = [("inc", inc[j]) if heads[j] or done[j]
+              else ("agg", agg[j], inc[j]) for j in range(n)]
     for t in range(1, n):
-        # ("agg", value, the value it publishes once its lookback is done)
-        words = [("inc", inc[j]) if heads[j] or done[j]
-                 else ("agg", agg[j], inc[j]) for j in range(t)]
-        got = _kernel_carry(t, words, window, look_max)
+        got = _kernel_carry(t, status[:t], window, look_max)
         h = max(j for j in range(t) if heads[j])
         want = _left_fold(agg[h:t])
         assert np.float32(got).view(np.uint32) == want.view(np.uint32), t

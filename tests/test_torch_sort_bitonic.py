@@ -1,12 +1,17 @@
-"""The port's sort API on the network engine vs the JAX network engine.
+"""The port's sort API on the network engine vs the JAX package.
 
-Both run SortConfig(engine="bitonic"); JAX in interpret mode. The JAX side
-calls its public functions' bodies without their outer jit
-(``__wrapped__``), so its network kernel compiles once per plane count and
-padded size instead of once per dtype. Everything is compared bit for bit,
-unstable pairs included: the port runs the JAX network, so equal keys'
-payloads land in the same places. N = 1000 pads to 1024 rows; 1024 is a
-power of two (the tie-safe route)."""
+The port runs SortConfig(engine="bitonic"). Where the result is one array
+whatever sorts it (keys only, argsort, stable pairs and structs: a stable
+sort has one output), the reference is JAX's default engine, which
+compiles in a second. Unstable pairs, whose tie order is the network's
+own, and the tag route (ties by the tag), are held to the JAX network
+engine in interpret mode: its public
+functions' bodies without their outer jit (``__wrapped__``), so its
+network kernel compiles once per plane count and padded size instead of
+once per dtype. Everything is compared bit for bit, unstable pairs
+included: the port runs the JAX network, so equal keys' payloads land in
+the same places. N = 1000 pads to 1024 rows; 1024 is a power of two (the
+tie-safe route)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +25,10 @@ from cuda.radixsort_tpu_torch.utils.convert import from_numpy, tree_from_numpy
 from test_torch_sort import KEY_DTYPES, _eq, make_keys
 
 JB = rs.SortConfig(engine="bitonic", interpret=True)
+JS = rs.SortConfig()  # JAX's default engine: the reference of unique results
 TB = rt.SortConfig(engine="bitonic")
 j_sort = rs.sort.__wrapped__
 j_pairs = rs.sort_pairs.__wrapped__
-j_argsort = rs.argsort.__wrapped__
 j_struct = rs.sort_struct.__wrapped__
 N, NPOW = 1000, 1024
 
@@ -52,7 +57,7 @@ def _eq_tree(got, want):
 def test_sort_matches_jax_network(dtype, descending):
     # ascending: a padded size; descending: a power of two
     keys = make_keys(dtype, n=NPOW if descending else N, seed=5)
-    want = j_sort(jnp.asarray(keys), descending=descending, config=JB)
+    want = rs.sort(jnp.asarray(keys), descending=descending, config=JS)
     _eq(rt.sort(from_numpy(keys, device="cpu"), descending=descending, config=TB),
         np.asarray(want))
 
@@ -90,8 +95,13 @@ def test_sort_pairs_matches_jax_network(case, descending):
         else:
             vals.append(make_keys(vd, n=n, seed=11 + i))
     vals = tuple(vals)
-    jk, jv = j_pairs(jnp.asarray(keys), _j(vals), descending=descending,
-                     config=JB, stable=stable, unique_leading_payload=tag)
+    # one output but for unstable pairs and the tag route (which orders
+    # ties by the tag on the network, stably on every other engine)
+    unique = stable and not tag
+    jk, jv = (rs.sort_pairs if unique else j_pairs)(
+        jnp.asarray(keys), _j(vals), descending=descending,
+        config=JS if unique else JB, stable=stable,
+        unique_leading_payload=tag)
     tk, tv = rt.sort_pairs(from_numpy(keys, device="cpu"), tree_from_numpy(vals, device="cpu"),
                            descending=descending, config=TB, stable=stable,
                            unique_leading_payload=tag)
@@ -104,7 +114,7 @@ def test_sort_pairs_matches_jax_network(case, descending):
     (np.uint64, True), (np.float64, False)])
 def test_argsort_matches_jax_network(dtype, descending):
     keys = make_keys(dtype, n=N, seed=13, distinct=300)
-    want = j_argsort(jnp.asarray(keys), descending=descending, config=JB)
+    want = rs.argsort(jnp.asarray(keys), descending=descending, config=JS)
     got = rt.argsort(from_numpy(keys, device="cpu"), descending=descending, config=TB)
     assert got.dtype == torch.int32
     _eq(got, np.asarray(want))
@@ -115,15 +125,16 @@ def test_sort_struct_matches_jax_network(stable):
     hi = make_keys(np.uint32, n=NPOW, seed=17, distinct=4)
     lo = make_keys(np.int32, n=NPOW, seed=19, distinct=4)
     v = make_keys(np.float32, n=NPOW, seed=23)
-    (jh, jl), jv = j_struct((jnp.asarray(hi), jnp.asarray(lo)), jnp.asarray(v),
-                            config=JB, stable=stable)
+    (jh, jl), jv = (rs.sort_struct if stable else j_struct)(
+        (jnp.asarray(hi), jnp.asarray(lo)), jnp.asarray(v),
+        config=JS if stable else JB, stable=stable)
     (th, tl), tv = rt.sort_struct((from_numpy(hi, device="cpu"), from_numpy(lo, device="cpu")),
                                   from_numpy(v, device="cpu"), config=TB, stable=stable)
     for g, w in ((th, jh), (tl, jl), (tv, jv)):
         _eq(g, np.asarray(w))
     keys_only = rt.sort_struct((from_numpy(hi, device="cpu"), from_numpy(lo, device="cpu")), config=TB)
-    for g, w in zip(keys_only, j_struct((jnp.asarray(hi), jnp.asarray(lo)),
-                                        config=JB)):
+    for g, w in zip(keys_only, rs.sort_struct((jnp.asarray(hi), jnp.asarray(lo)),
+                                              config=JS)):
         _eq(g, np.asarray(w))
 
 
@@ -140,9 +151,9 @@ def test_split_sort_merge_matches_jax(monkeypatch):
     keys = make_keys(np.uint32, n=n, seed=29, distinct=60)
     v = make_keys(np.int32, n=n, seed=31)
     _eq(rt.sort(from_numpy(keys, device="cpu"), config=cfg),
-        np.asarray(j_sort(jnp.asarray(keys), config=JB)))
+        np.asarray(rs.sort(jnp.asarray(keys), config=JS)))
     tk, tv = rt.sort_pairs(from_numpy(keys, device="cpu"), from_numpy(v, device="cpu"), config=cfg)
-    jk, jv = j_pairs(jnp.asarray(keys), jnp.asarray(v), config=JB)
+    jk, jv = rs.sort_pairs(jnp.asarray(keys), jnp.asarray(v), config=JS)
     _eq(tk, np.asarray(jk))
     _eq(tv, np.asarray(jv))
     # unstable and padded: every plane compares, so the result is the

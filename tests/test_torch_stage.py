@@ -2,7 +2,8 @@
 
 On the CPU the wrapper runs its plain PyTorch version; the CUDA kernels are
 held against the same plain version on the card by chip_smoke.py. Each JAX
-interpret call costs several seconds, so only four are made here."""
+interpret call costs several seconds (one compile per planes x width x
+shift x shape): every call here is one of two (``_jax_stage``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,10 +14,10 @@ from cuda.radixsort_tpu.kernels import stage as jstage
 from cuda.radixsort_tpu_torch.kernels import stage as tstage
 from cuda.radixsort_tpu_torch.utils.convert import from_numpy, to_numpy
 
-# 64 rows of 128 lanes: two JAX tiles at rows=32, the tiles of
-# _jax_padded, so a case of the same planes, width and shift as a tile-edge
-# case below (random-4-0-1 and TILE - 1) reuses its interpret compile
 N = 8192
+# every JAX call runs on JAX_N keys: 96 rows of 128 lanes, three tiles at
+# rows=32, so all calls of one width share one interpret compile
+JAX_N = 3 * 32 * 128
 
 
 def _gbase(keys, shift, width):
@@ -31,6 +32,32 @@ def _keys(case, rng, n=N):
     if case == "empty_buckets":
         return (rng.integers(0, 2, size=n, dtype=np.uint32) * 8)
     return rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+
+
+def _rotr(k, s):
+    s = np.uint32(s % 32)
+    return (k >> s) | (k << np.uint32((32 - s) % 32)) if s else k
+
+
+def _jax_stage(planes, shift, width, rows=32):
+    """The JAX stage kernel's output planes (interpret mode). Its compile
+    is paid once per planes x width x shift x shape, so every call here is
+    one of width 2 or 4 at shift 0 over two planes of JAX_N keys: the keys,
+    padded with keys of the top digit (they land after every real key) and
+    rotated right by ``shift`` (the same digit at bit 0, so the same
+    stable permutation), and their row index, whose first n outputs gather
+    every payload plane."""
+    n = planes[0].size
+    top = np.uint32(((1 << width) - 1) << shift)
+    keys = _rotr(np.concatenate([planes[0], np.full(JAX_N - n, top, np.uint32)]),
+                 shift)
+    idx = np.arange(JAX_N, dtype=np.uint32)
+    out = jstage.partition_stage(
+        [jnp.asarray(p).reshape(-1, 128) for p in (keys, idx)],
+        jnp.asarray(_gbase(keys, 0, width)), shift=0, width=width, rows=rows,
+        interpret=True)
+    k, i = (np.asarray(o).reshape(-1)[:n] for o in out)
+    return [_rotr(k, 32 - shift)] + [p[i] for p in planes[1:]]
 
 
 def _oracle(planes, shift, width):
@@ -50,13 +77,10 @@ def test_stage_matches_jax_interpret(case, width, shift, n_planes):
     keys = _keys(case, rng)
     planes = [keys] + [rng.integers(0, 2**32, size=N, dtype=np.uint64)
                        .astype(np.uint32) for _ in range(n_planes - 1)]
-    gbase = _gbase(keys, shift, width)
-    want = jstage.partition_stage(
-        [jnp.asarray(p).reshape(-1, 128) for p in planes], jnp.asarray(gbase),
-        shift=shift, width=width, rows=32, interpret=True)
-    want = [np.asarray(w).reshape(-1) for w in want]
+    want = _jax_stage(planes, shift, width)
     got = tstage.partition_stage([from_numpy(p, device="cpu") for p in planes],
-                                 from_numpy(gbase, device="cpu"), shift=shift, width=width)
+                                 from_numpy(_gbase(keys, shift, width), device="cpu"),
+                                 shift=shift, width=width)
     assert len(got) == n_planes
     for g, w in zip(got, want):
         np.testing.assert_array_equal(to_numpy(g), w)
@@ -100,23 +124,6 @@ def test_stage_rejects_bad_input():
         tstage.partition_stage([keys, keys[:32]], gb, shift=0, width=8)
 
 
-def _jax_padded(planes, shift, width, rows=32):
-    """The JAX stage kernel on planes padded to whole (rows, 128) tiles
-    with keys of the top digit, which land after every real key; the
-    first n rows of its output are the pass over the n real keys."""
-    n = planes[0].size
-    tile = rows * 128
-    pad = -n % tile + (tile if n == 0 else 0)
-    top = np.uint32(((1 << width) - 1) << shift)
-    padded = [np.concatenate([planes[0], np.full(pad, top, np.uint32)])]
-    padded += [np.concatenate([p, np.zeros(pad, np.uint32)]) for p in planes[1:]]
-    out = jstage.partition_stage(
-        [jnp.asarray(p).reshape(-1, 128) for p in padded],
-        jnp.asarray(_gbase(padded[0], shift, width)), shift=shift,
-        width=width, rows=rows, interpret=True)
-    return [np.asarray(o).reshape(-1)[:n] for o in out]
-
-
 TILE = tstage.config_lib.preset().tile_elems  # the card's stage tile
 
 
@@ -133,7 +140,7 @@ def test_stage_tile_edges_match_jax(n, n_planes, width, shift):
     got = tstage.partition_stage([from_numpy(p, device="cpu") for p in planes],
                                  from_numpy(_gbase(planes[0], shift, width), device="cpu"),
                                  shift=shift, width=width)
-    for g, w in zip(got, _jax_padded(planes, shift, width)):
+    for g, w in zip(got, _jax_stage(planes, shift, width)):
         np.testing.assert_array_equal(to_numpy(g), w)
 
 

@@ -84,3 +84,24 @@ def test_twiddle_widths_and_errors():
     assert ttw.unsigned_dtype(torch.int8) == torch.uint8
     with pytest.raises(TypeError):
         ttw.unsigned_dtype(torch.bool)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32, np.uint64, np.int32,
+                                   np.float32])
+def test_greater_compares_as_numbers(dtype):
+    """twiddle.greater(t, x) == numpy's t > x for every dtype, thresholds
+    inside and outside the dtype's range and between integers."""
+    info = (np.iinfo(dtype) if np.dtype(dtype).kind in "iu"
+            else np.finfo(dtype))
+    rng = np.random.default_rng(np.dtype(dtype).itemsize)
+    x = np.concatenate([[info.min, info.max, 0, 1],
+                        rng.integers(0, 2**15, 60)]).astype(dtype)
+    t = from_numpy(x, device="cpu")
+    edge = ((int(info.max) - 1, int(info.max))
+            if np.dtype(dtype).kind in "iu" else (1e30,))
+    for th in (-1, 0, 5, 5.5, 2**15) + edge + (
+            (2**70,) if np.dtype(dtype).kind == "u" else ()):
+        got = to_numpy(ttw.greater(t, th))
+        want = np.array([int(v) > th if np.dtype(dtype).kind in "iu"
+                         else float(v) > th for v in x])
+        np.testing.assert_array_equal(got, want, err_msg=str(th))
