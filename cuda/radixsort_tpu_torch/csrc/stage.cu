@@ -42,6 +42,18 @@
 // Planes beyond the first 8 run in further launches that rank the same keys
 // again and read each tile's INCLUSIVE words, which the first launch left;
 // they do not look back.
+//
+// 8-byte columns (a 64-bit key's two limbs, an 8-byte payload) come as one
+// plane of the launch each, both u32 halves together: the wrapper pairs the
+// halves it is given (stride-2 views of one column) and the PAIRED
+// instantiation loads each row's 8 bytes as one word, exchanges them through
+// 8-byte slots and stores one 8-byte word a slot, so every output sector is
+// written whole. The rank reads the key's half at element stride 2 (the
+// sectors the column's exchange reads again, from L2). A thread holds the
+// words of half its rows at a time, in the registers that hold a u32 plane:
+// the first half is loaded ahead, the second as the first is exchanged.
+// Launches of u32 planes only run the other instantiation, which is the
+// kernel as it was before 8-byte columns: no stride, no wider registers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,10 +70,13 @@ constexpr unsigned long long kPartial = 1ull << 62;
 constexpr unsigned long long kInclusive = 2ull << 62;
 constexpr unsigned long long kValue = (1ull << 62) - 1;
 
+// in / out: a plane's first u32, or for an 8-byte column (bit q of wide,
+// PAIRED only) the column's first 8-byte word.
 struct Planes {
   const uint32_t* in[kMaxPlanes];
   uint32_t* out[kMaxPlanes];
   int n;
+  unsigned wide;
 };
 
 // Bytes of dynamic shared memory the launch gave this block.
@@ -106,20 +121,24 @@ __device__ __forceinline__ void store_status(unsigned long long* p,
 // status: [1 + n_tiles * nb] words, word 0 the tile counter (zeroed before
 // the first launch). lookback: the first launch of a pass (claims tiles,
 // looks back, publishes); otherwise tile = blockIdx.x and the offsets come
-// from the INCLUSIVE words the first launch left.
-template <int ITEMS>
+// from the INCLUSIVE words the first launch left. PAIRED: the keys are
+// keys[i * key_stride] (2 where plane 0 is an 8-byte column, keys then
+// pointing at the key's half of its first word); unused otherwise.
+template <int ITEMS, bool PAIRED>
 __global__ void __launch_bounds__(kMaxThreads, ITEMS <= 16 ? 2 : 1)
     stage_onesweep(const uint32_t* __restrict__ keys, Planes p, int64_t n,
                    int shift, int nb, const uint32_t* __restrict__ gbase,
-                   unsigned long long* status, bool lookback) {
+                   unsigned long long* status, bool lookback,
+                   int key_stride) {
   // the caller sizes shared memory (kernels/stage.py::stage_smem_bytes)
   extern __shared__ unsigned long long smem[];
   const int threads = blockDim.x, warps = threads >> 5;
   const int tile_elems = threads * ITEMS;
   int64_t* s_goff = (int64_t*)smem;                        // [nb]
   long long* s_scan = (long long*)(s_goff + nb);           // [32]
-  uint32_t* s_buf = (uint32_t*)(s_scan + 32);              // [tile]
-  int* s_wc = (int*)(s_buf + tile_elems);                  // [warps][nb]
+  uint32_t* s_buf = (uint32_t*)(s_scan + 32);              // [tile] slots
+  unsigned long long* s_buf64 = (unsigned long long*)s_buf;
+  int* s_wc = (int*)(s_buf + (PAIRED ? 2 : 1) * tile_elems);  // [warps][nb]
   int* s_cnt = s_wc + warps * nb;                          // [nb]
   int* s_dstart = s_cnt + nb;                              // [nb]
   int* s_tile = s_dstart + nb;                             // [4]
@@ -147,7 +166,10 @@ __global__ void __launch_bounds__(kMaxThreads, ITEMS <= 16 ? 2 : 1)
 #pragma unroll
   for (int r = 0; r < ITEMS; ++r) {
     const int i = wbase + r * 32 + lane;
-    key[r] = i < valid_n ? keys[start + i] : 0u;
+    if constexpr (PAIRED)
+      key[r] = i < valid_n ? keys[(start + i) * key_stride] : 0u;
+    else
+      key[r] = i < valid_n ? keys[start + i] : 0u;
   }
 
   // rank within the warp: warp-running count + rank among equal lanes
@@ -201,26 +223,41 @@ __global__ void __launch_bounds__(kMaxThreads, ITEMS <= 16 ? 2 : 1)
   __syncthreads();
 
   // each key's slot in the digit-sorted tile; the keys (plane 0 of the
-  // first group) and every slot's digit go to shared memory now
+  // first group, unless it is an 8-byte column) and every slot's digit go
+  // to shared memory now
+  const bool keys_held = lookback && !(PAIRED && (p.wide & 1u));
 #pragma unroll
   for (int r = 0; r < ITEMS; ++r) {
     const bool valid = wbase + r * 32 + lane < valid_n;
     const int d = (int)((key[r] >> shift) & mask);
     slot[r] = valid ? s_dstart[d] + s_wc[warp * nb + d] + slot[r] : -1;
     if (valid) {
-      if (lookback) s_buf[slot[r]] = key[r];
+      if (keys_held) s_buf[slot[r]] = key[r];
       s_dig[slot[r]] = (uint8_t)d;
     }
   }
   // the next plane's values, loaded ahead of the lookback and of each
-  // store so that their latency overlaps them
+  // store so that their latency overlaps them (an 8-byte column: the words
+  // of rounds [0, ITEMS / 2), two registers each)
   uint32_t val[ITEMS];
+  auto row = [&](int r) { return start + wbase + r * 32 + lane; };
   auto prefetch = [&](int q) {
+    if (PAIRED && ((p.wide >> q) & 1u)) {
+      const unsigned long long* src = (const unsigned long long*)p.in[q];
+#pragma unroll
+      for (int r = 0; r < ITEMS / 2; ++r) {
+        if (slot[r] < 0) continue;
+        const unsigned long long w = src[row(r)];
+        val[2 * r] = (uint32_t)w;
+        val[2 * r + 1] = (uint32_t)(w >> 32);
+      }
+      return;
+    }
 #pragma unroll
     for (int r = 0; r < ITEMS; ++r)
-      if (slot[r] >= 0) val[r] = p.in[q][start + wbase + r * 32 + lane];
+      if (slot[r] >= 0) val[r] = p.in[q][row(r)];
   };
-  if (!lookback) prefetch(0);
+  if (!keys_held) prefetch(0);
   else if (p.n > 1) prefetch(1);
 
   // the tile's global offset per digit
@@ -256,65 +293,99 @@ __global__ void __launch_bounds__(kMaxThreads, ITEMS <= 16 ? 2 : 1)
   __syncthreads();
 
   // exchange and store, one plane at a time through s_buf: consecutive
-  // threads store consecutive slots
+  // threads store consecutive slots (an 8-byte column: one word a slot)
   for (int q = 0; q < p.n; ++q) {
-    if (q > 0 || !lookback) {  // s_buf does not hold plane q yet
+    const bool wide = PAIRED && ((p.wide >> q) & 1u);
+    if (q > 0 || !keys_held) {  // s_buf does not hold plane q yet
+      if (wide) {
+        const unsigned long long* src = (const unsigned long long*)p.in[q];
 #pragma unroll
-      for (int r = 0; r < ITEMS; ++r)
-        if (slot[r] >= 0) s_buf[slot[r]] = val[r];
+        for (int r = 0; r < ITEMS / 2; ++r)
+          if (slot[r] >= 0)
+            s_buf64[slot[r]] =
+                val[2 * r] | (unsigned long long)val[2 * r + 1] << 32;
+#pragma unroll
+        for (int r = ITEMS / 2; r < ITEMS; ++r)
+          if (slot[r] >= 0) s_buf64[slot[r]] = src[row(r)];
+      } else {
+#pragma unroll
+        for (int r = 0; r < ITEMS; ++r)
+          if (slot[r] >= 0) s_buf[slot[r]] = val[r];
+      }
       if (q + 1 < p.n) prefetch(q + 1);
       __syncthreads();
     }
-    uint32_t* dst = p.out[q];
+    if (wide) {
+      unsigned long long* dst = (unsigned long long*)p.out[q];
 #pragma unroll 4
-    for (int s = tid; s < valid_n; s += threads)
-      dst[s_goff[s_dig[s]] + s] = s_buf[s];
+      for (int s = tid; s < valid_n; s += threads)
+        dst[s_goff[s_dig[s]] + s] = s_buf64[s];
+    } else {
+      uint32_t* dst = p.out[q];
+#pragma unroll 4
+      for (int s = tid; s < valid_n; s += threads)
+        dst[s_goff[s_dig[s]] + s] = s_buf[s];
+    }
     __syncthreads();
   }
 }
 
-template <int ITEMS>
+template <int ITEMS, bool PAIRED>
 cudaError_t launch(const uint32_t* keys, const Planes& p, int64_t n,
                    int shift, int nb, const uint32_t* gbase,
-                   unsigned long long* status, bool lookback, int threads,
-                   int64_t n_tiles, size_t smem, cudaStream_t s) {
+                   unsigned long long* status, bool lookback, int key_stride,
+                   int threads, int64_t n_tiles, size_t smem,
+                   cudaStream_t s) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        stage_onesweep<ITEMS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        stage_onesweep<ITEMS, PAIRED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  stage_onesweep<ITEMS><<<(unsigned)n_tiles, threads, smem, s>>>(
-      keys, p, n, shift, nb, gbase, status, lookback);
+  stage_onesweep<ITEMS, PAIRED><<<(unsigned)n_tiles, threads, smem, s>>>(
+      keys, p, n, shift, nb, gbase, status, lookback, key_stride);
   return cudaGetLastError();
 }
 
-// launch<ITEMS> for the one of the built ITEMS (RS_STAGE_ITEMS, config.py's
-// STAGE_ITEMS) that equals items; cudaErrorInvalidValue for any other.
+// launch<ITEMS, paired> for the one of the built ITEMS (RS_STAGE_ITEMS,
+// config.py's STAGE_ITEMS) that equals items; cudaErrorInvalidValue for any
+// other.
 template <int... ITEMS, typename... Args>
-cudaError_t launch_items(int items, Args... args) {
+cudaError_t launch_items(int items, bool paired, Args... args) {
   cudaError_t err = cudaErrorInvalidValue;
-  ((items == ITEMS ? (err = launch<ITEMS>(args...), 0) : 0), ...);
+  ((items == ITEMS ? (err = paired ? launch<ITEMS, true>(args...)
+                                   : launch<ITEMS, false>(args...), 0) : 0),
+   ...);
   return err;
 }
 
 }  // namespace
 
-// in_planes / out_planes: host arrays of n_planes device pointers (u32, n
-// each); plane 0 holds the keys. gbase: 2^width u32 exclusive bucket
-// bases (up to 2^31: n <= 2^31). status: 1 + n_tiles * 2^width 64-bit words of scratch, zeroed here
-// (one memset per pass). threads: a multiple of 32 up to
-// RS_MAX_STAGE_THREADS; items: keys per thread, one of RS_STAGE_ITEMS.
-// smem: a block's dynamic shared memory, bytes
-// (kernels/stage.py::stage_smem_bytes).
+// in_planes / out_planes: host arrays of n_planes device pointers; plane 0
+// holds the keys. wide: host array of n_planes ints, 1 for an 8-byte column
+// (both u32 halves of n 8-byte words; the pointers 8-byte aligned), 0 for a
+// u32 plane (n words). key_half: which half of plane 0 holds the keys where
+// it is an 8-byte column (0 the low, 1 the high word), else -1. A pass with
+// any 8-byte column runs the PAIRED instantiation. gbase: 2^width u32
+// exclusive bucket bases (up to 2^31: n <= 2^31). status: 1 + n_tiles *
+// 2^width 64-bit words of scratch, zeroed here (one memset per pass).
+// threads: a multiple of 32 up to RS_MAX_STAGE_THREADS; items: keys per
+// thread, one of RS_STAGE_ITEMS. smem: a block's dynamic shared memory,
+// bytes (kernels/stage.py::stage_smem_bytes, with 8-byte slots where the
+// pass has an 8-byte column).
 extern "C" int rs_partition_stage(const void* in_planes, const void* out_planes,
-                                  int n_planes, const void* gbase, int64_t n,
-                                  int shift, int width, void* status,
-                                  int threads, int items, int64_t smem,
-                                  void* stream) {
+                                  const void* wide, int n_planes, int key_half,
+                                  const void* gbase, int64_t n, int shift,
+                                  int width, void* status, int threads,
+                                  int items, int64_t smem, void* stream) {
   if (threads < 32 || threads > kMaxThreads || threads % 32 || n_planes < 1 ||
-      (width != 2 && width != 4 && width != 8) || smem < 1)
+      (width != 2 && width != 4 && width != 8) || smem < 1 ||
+      key_half < -1 || key_half > 1)
     return (int)cudaErrorInvalidValue;
+  const int* wd = (const int*)wide;
+  bool paired = false;
+  for (int q = 0; q < n_planes; ++q) paired = paired || wd[q] != 0;
+  if ((key_half >= 0) != (wd[0] != 0)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const void* const* ins = (const void* const*)in_planes;
@@ -322,7 +393,9 @@ extern "C" int rs_partition_stage(const void* in_planes, const void* out_planes,
   const int nb = 1 << width;
   const int64_t tile = (int64_t)threads * items;
   const int64_t n_tiles = (n + tile - 1) / tile;
-  const uint32_t* keys = (const uint32_t*)ins[0];
+  // the keys: plane 0, or its key_half-th word of each 8-byte row
+  const uint32_t* keys = (const uint32_t*)ins[0] + (key_half > 0 ? 1 : 0);
+  const int key_stride = key_half >= 0 ? 2 : 1;
   unsigned long long* st = (unsigned long long*)status;
 
   cudaError_t err = cudaMemsetAsync(
@@ -331,14 +404,17 @@ extern "C" int rs_partition_stage(const void* in_planes, const void* out_planes,
   for (int g = 0; g < n_planes; g += kMaxPlanes) {
     Planes p;
     p.n = n_planes - g < kMaxPlanes ? n_planes - g : kMaxPlanes;
+    p.wide = 0;
     for (int q = 0; q < kMaxPlanes; ++q) {
       p.in[q] = q < p.n ? (const uint32_t*)ins[g + q] : nullptr;
       p.out[q] = q < p.n ? (uint32_t*)outs[g + q] : nullptr;
+      if (q < p.n && wd[g + q]) p.wide |= 1u << q;
     }
     const bool first = g == 0;
-    err = launch_items<RS_STAGE_ITEMS>(items, keys, p, n, shift, nb,
+    err = launch_items<RS_STAGE_ITEMS>(items, paired, keys, p, n, shift, nb,
                                        (const uint32_t*)gbase, st, first,
-                                       threads, n_tiles, (size_t)smem, s);
+                                       key_stride, threads, n_tiles,
+                                       (size_t)smem, s);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

@@ -5,7 +5,10 @@ pass, one histogram launch counts every stage of every limb (histograms do
 not change under the permutations the passes apply) and the stages'
 maxima are read to the host once (one sync per sort) for the trivial-pass
 skip; then, per limb (least significant first), one partition stage per
-digit. The stages ping-pong between two plane sets allocated once per sort.
+digit that is not skipped. The first pass reads the caller's planes; the
+passes then ping-pong between the result's columns, allocated up front,
+and one scratch set in their layout, in the order that makes the last
+pass write the result.
 """
 
 from __future__ import annotations
@@ -25,38 +28,28 @@ def _stages_for(begin: int, end: int, width: int) -> list[int]:
     return [width * s for s in range(begin // width, -(-end // width))]
 
 
-class _Slot:
-    """One plane of the sort: its current tensor and two buffers to
-    ping-pong between (allocated on first use)."""
-
-    def __init__(self, tensor: torch.Tensor):
-        self.cur = tensor
-        self.bufs: list[torch.Tensor] = []
-
-    def next_buffer(self) -> torch.Tensor:
-        if not self.bufs:
-            self.bufs = [torch.empty_like(self.cur), torch.empty_like(self.cur)]
-        return self.bufs[1] if self.cur is self.bufs[0] else self.bufs[0]
-
-
 def sort_limbs(limbs, limb_bits, payloads, cfg):
     """Stable LSD sort of u32 limb columns via the stage kernel.
 
-    limbs[k]: (N,) contiguous torch.uint32, most significant first;
-    limb_bits[k] = (begin, end): the bits of limb k that take part in the
-    order. payloads: (N,) torch.uint32 planes that follow the permutation.
-    A bit range that is not width-aligned is sorted through a masked copy of
-    the limb as the key, with the original limb riding along (CUB
-    begin_bit/end_bit semantics). Returns (limbs, payloads); the inputs are
-    never written and never returned.
+    limbs[k]: (N,) torch.uint32, most significant first; limb_bits[k] =
+    (begin, end): the bits of limb k that take part in the order.
+    payloads: (N,) torch.uint32 planes that follow the permutation. A limb
+    or payload is contiguous or one stride-2 half of an 8-byte column
+    (``histogram.halves``) whose other half is also given; the two halves
+    of a 64-bit key are neighbouring limbs. A bit range that is not
+    width-aligned is sorted through a masked copy of the limb as the key,
+    with the original limb riding along (CUB begin_bit/end_bit semantics).
+    Returns (limbs, payloads) in the inputs' layout (an 8-byte column's
+    halves are the halves of one fresh column); the inputs are never
+    written and never returned.
     """
     global ROWS
     width = cfg.radix_bits  # digit width of one stage: 2, 4 or 8
     n = limbs[0].numel()
     ROWS += n
-    limb_slots = [_Slot(t) for t in limbs]
-    pay_slots = [_Slot(t) for t in payloads]
-    masked = None  # slot of the masked key copy, for unaligned limbs
+    planes = list(limbs) + list(payloads)
+    partner = hist_lib.pair_planes(planes)
+    n_limbs = len(limbs)
 
     # every limb's stage histograms in one read, and their maxima on the
     # host in one sync: a stage whose digit puts every key in one bucket is
@@ -70,40 +63,45 @@ def sort_limbs(limbs, limb_bits, payloads, cfg):
             hist_max = maxima.tolist()
     ranges = hist_lib.limb_stages(limb_bits, width)  # (mask, n_stages)
     first_row = [sum(st for _, st in ranges[:k]) for k in range(len(ranges))]
+    passes = [(k, shift, first_row[k] + shift // width)
+              for k in range(n_limbs - 1, -1, -1)
+              for shift in _stages_for(*limb_bits[k], width)
+              if limb_bits[k][0] < limb_bits[k][1]
+              and hist_max[first_row[k] + shift // width] != n]
 
-    for k in range(len(limbs) - 1, -1, -1):
+    # the result, and (for two passes or more) one scratch set: pass p
+    # writes the result when an even number of passes follow it
+    result = stage_lib.empty_like(planes, partner)
+    if not passes:
+        for r, p in zip(result, planes):
+            r.copy_(p)
+        return result[:n_limbs], result[n_limbs:]
+    scratch = (stage_lib.empty_like(planes, partner) if len(passes) > 1
+               else None)
+    cur = planes
+    masked, masked_limb = None, None  # the masked key copy, its ping-pong
+    for p, (k, shift, s) in enumerate(passes):
+        dst = result if (len(passes) - 1 - p) % 2 == 0 else scratch
         begin, end = limb_bits[k]
-        if begin >= end:
-            continue
         if begin % width == 0 and end % width == 0:
-            key = limb_slots[k]
-            riders = [s for i, s in enumerate(limb_slots) if i != k]
+            order = [k] + [i for i in range(len(planes)) if i != k]
+            src, out = [cur[i] for i in order], [dst[i] for i in order]
         else:
-            if masked is None:
-                masked = _Slot(limbs[k])
-            mask = ranges[k][0]
-            buf = masked.next_buffer()
-            torch.bitwise_and(limb_slots[k].cur.view(torch.int32),
-                              mask - (1 << 32) if mask >= 1 << 31 else mask,
-                              out=buf.view(torch.int32))
-            masked.cur = buf
-            key = masked
-            riders = list(limb_slots)
-        slots = [key] + riders + pay_slots
-
-        for shift in _stages_for(begin, end, width):
-            s = first_row[k] + shift // width
-            if hist_max[s] == n:
-                continue
-            outs = [sl.next_buffer() for sl in slots]
-            stage_lib.partition_stage([sl.cur for sl in slots], bases[s],
-                                      shift=shift, width=width, out=outs,
-                                      config=cfg)
-            for sl, o in zip(slots, outs):
-                sl.cur = o
-
-    def result(slot, original):
-        return slot.cur.clone() if slot.cur is original else slot.cur
-
-    return ([result(s, t) for s, t in zip(limb_slots, limbs)],
-            [result(s, t) for s, t in zip(pay_slots, payloads)])
+            if masked_limb != k:  # the limb as it stands, masked
+                if masked is None:
+                    masked = [torch.empty(n, dtype=torch.uint32,
+                                          device=planes[0].device)
+                              for _ in range(2)]
+                mask = ranges[k][0]
+                torch.bitwise_and(
+                    cur[k].view(torch.int32),
+                    mask - (1 << 32) if mask >= 1 << 31 else mask,
+                    out=masked[0].view(torch.int32))
+                masked_limb = k
+            src = [masked[0]] + list(cur)
+            out = [masked[1]] + list(dst)
+            masked.reverse()
+        stage_lib.partition_stage(src, bases[s], shift=shift, width=width,
+                                  out=out, config=cfg)
+        cur = dst
+    return result[:n_limbs], result[n_limbs:]

@@ -75,7 +75,9 @@ def segmented_sort(keys: torch.Tensor, offsets: torch.Tensor, values=None, *,
     seg_bits = max(1, max(nseg - 1, 1).bit_length())
     seg = _segment_ids(offsets, n)
 
-    limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit)
+    radix = cfg.engine == "radix"
+    limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit,
+                                     radix)
     full = full_range(keys.dtype, begin_bit, end_bit)
     if (cfg.engine == "bitonic" and values is None and len(limbs) == 1
             and full):
@@ -88,7 +90,7 @@ def segmented_sort(keys: torch.Tensor, offsets: torch.Tensor, values=None, *,
     seg_range = (0, 32) if cfg.engine == "bitonic" and full else (0, seg_bits)
     limbs, out = _sort_limbs([seg] + limbs, [seg_range] + limb_bits, leaves,
                              cfg)
-    keys_out = _limbs_to_key(limbs[1:], keys.dtype, descending)
+    keys_out = _limbs_to_key(limbs[1:], keys.dtype, descending, radix)
     if values is None:
         return keys_out
     return keys_out, _unflatten(spec, iter(out))

@@ -6,7 +6,11 @@ into unsigned bits and split into u32 limbs (64-bit keys: hi, lo).
 
 * engine 'radix' (and 'auto'): the limbs sort least significant first
   through the histogram and stage kernels, payloads riding along as u32
-  planes. Always stable, so ``stable=False`` gives the stable result.
+  planes. Always stable, so ``stable=False`` gives the stable result. An
+  8-byte key or payload column goes in as the two halves of its own words
+  and comes out as the LSD loop's own column (no split, no join, no copy of
+  unsigned keys); :data:`STAGED_BYTES` counts the copies this route still
+  makes.
 * engine 'bitonic': full-range keys-only sorts, argsorts of keys up to 32
   bits, and pair sorts of at most 4 u32 planes with payloads of at most 4
   bytes run the comparison network (``kernels/bitonic.py``), routed as the
@@ -43,6 +47,30 @@ from cuda.radixsort_tpu_torch.utils.profiling import sync_span, traced
 _DEVICE_MAX_N = 1 << 31
 
 _FLOATS = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
+
+# Bytes read plus bytes written by the torch copies that the radix route
+# makes of a key or payload column on its way into or out of
+# kernels/pipeline.py::sort_limbs: a contiguous copy, a twiddle each way and
+# a descending complement (signed and float keys; torch runs the float
+# twiddle as several elementwise ops, counted as one), a widen or narrow of
+# columns under 4 bytes, and the split, join and clone of 8-byte columns
+# where the route made them. Each counts its least traffic: the column read
+# once and written once. The masked-limb copy inside sort_limbs belongs to
+# the LSD loop and is not counted. The benchmark's
+# sort.staged_bytes_per_row reads its delta.
+STAGED_BYTES = 0
+
+
+def _staged(n_bytes: int) -> None:
+    global STAGED_BYTES
+    STAGED_BYTES += n_bytes
+
+
+def _twiddle_bytes(dtype: torch.dtype, n: int, descending: bool) -> int:
+    """STAGED_BYTES of twiddling n keys one way: one pass for signed and
+    float keys, one more for descending order."""
+    passes = (twiddle.unsigned_dtype(dtype) != dtype) + descending
+    return 2 * n * dtype.itemsize * passes
 
 
 def _check_device_n(n: int) -> None:
@@ -88,14 +116,22 @@ def _narrow_u32(o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return o.to(dtype)
 
 
-def _to_planes(p: torch.Tensor):
-    """A 1-D payload column -> (u32 planes, how to rebuild it)."""
+def _to_planes(p: torch.Tensor, radix: bool = False):
+    """A 1-D payload column -> (u32 planes, how to rebuild it). ``radix``:
+    for the LSD loop, which takes an 8-byte column as the two halves of
+    its words (no copy); the copies made are counted in STAGED_BYTES."""
+    n, size = p.shape[0], p.dtype.itemsize
+    if radix and not p.is_contiguous():
+        _staged(2 * n * size)
     p = p.contiguous()
-    size = p.dtype.itemsize
     if size == 4:
         return [p.view(torch.uint32)], ("view", p.dtype)
     if size < 4:
+        if radix:
+            _staged(n * (size + 4))
         return [_widen_u32(p)], ("narrow", p.dtype)
+    if size == 8 and radix:
+        return list(hist_lib.halves(p)), ("pair", p.dtype)
     if size == 8:
         lohi = p.view(torch.int32).reshape(-1, 2)
         return ([lohi[:, 0].contiguous().view(torch.uint32),
@@ -103,12 +139,18 @@ def _to_planes(p: torch.Tensor):
     raise TypeError(f"unsupported payload dtype {p.dtype}")
 
 
-def _from_planes(planes, spec) -> torch.Tensor:
+def _from_planes(planes, spec, radix: bool = False) -> torch.Tensor:
     how, dtype = spec
     if how == "view":
         return planes[0].view(dtype)
     if how == "narrow":
+        if radix:
+            _staged(planes[0].shape[0] * (4 + dtype.itemsize))
         return _narrow_u32(planes[0], dtype)
+    if radix and hist_lib.is_pair(*planes):  # the LSD loop's own column
+        return hist_lib.column_of(planes[0]).view(dtype)
+    if radix:
+        _staged(16 * planes[0].shape[0])
     lo, hi = (q.view(torch.int32) for q in planes)
     return torch.stack([lo, hi], dim=1).view(dtype).reshape(-1)
 
@@ -128,16 +170,17 @@ def _sort_limbs(limbs, limb_bits, payloads, cfg, stable: bool = True,
                              unique_leading_payload)
         if out is not None:
             return out
+    radix = cfg.engine == "radix"
     planes, specs, counts = [], [], []
     for p in payloads:
-        ps, spec = _to_planes(p)
+        ps, spec = _to_planes(p, radix)
         planes += ps
         specs.append(spec)
         counts.append(len(ps))
     out_limbs, out_planes = kpipe.sort_limbs(limbs, limb_bits, planes, cfg)
     out, i = [], 0
     for spec, c in zip(specs, counts):
-        out.append(_from_planes(out_planes[i:i + c], spec))
+        out.append(_from_planes(out_planes[i:i + c], spec, radix))
         i += c
     return out_limbs, out
 
@@ -410,41 +453,69 @@ def full_range(dtype: torch.dtype, begin_bit, end_bit) -> bool:
     return begin_bit in (None, 0) and end_bit in (None, twiddle.bit_width(dtype))
 
 
-def _key_to_limbs(keys: torch.Tensor, descending: bool, begin_bit, end_bit):
+def _key_to_limbs(keys: torch.Tensor, descending: bool, begin_bit, end_bit,
+                  radix: bool = False):
     """Twiddle keys and split them into u32 limb columns, most significant
-    first. Returns (limbs, limb_bits)."""
+    first. Returns (limbs, limb_bits). ``radix``: for the LSD loop, which
+    takes a 64-bit key as the two halves of its words (views of the
+    twiddled bits, or of the caller's keys for unsigned keys in ascending
+    order: no copy); the copies made are counted in STAGED_BYTES."""
     width = twiddle.bit_width(keys.dtype)
     begin = 0 if begin_bit is None else begin_bit
     end = width if end_bit is None else end_bit
     if not 0 <= begin <= end <= width:
         raise ValueError(f"bad bit range [{begin}, {end}) for {keys.dtype}")
+    n, size = keys.shape[0], keys.dtype.itemsize
+    if radix:
+        _staged((0 if keys.is_contiguous() else 2 * n * size)
+                + _twiddle_bytes(keys.dtype, n, descending))
     bits = twiddle.signed_view(twiddle.twiddle_in(keys.contiguous(), descending))
     if width < 32:
+        if radix:
+            _staged(n * (size + 4))
         limb = (bits.to(torch.int32) & ((1 << width) - 1)).view(torch.uint32)
         return [limb], [(begin, end)]
     if width == 32:
         return [bits.view(torch.uint32)], [(begin, end)]
     # 64-bit keys: little-endian (lo, hi) halves of the bits
+    lo_range = (min(begin, 32), min(end, 32))
+    hi_range = (max(begin, 32) - 32, max(end, 32) - 32)
+    if radix:
+        lo, hi = hist_lib.halves(bits)
+        return [hi, lo], [hi_range, lo_range]
     lohi = bits.view(torch.int32).reshape(-1, 2)
     hi = lohi[:, 1].contiguous().view(torch.uint32)
     lo = lohi[:, 0].contiguous().view(torch.uint32)
-    lo_range = (min(begin, 32), min(end, 32))
-    hi_range = (max(begin, 32) - 32, max(end, 32) - 32)
     return [hi, lo], [hi_range, lo_range]
 
 
-def _limbs_to_key(limbs, dtype: torch.dtype, descending: bool) -> torch.Tensor:
+def _limbs_to_key(limbs, dtype: torch.dtype, descending: bool,
+                  radix: bool = False) -> torch.Tensor:
+    """Inverse of :func:`_key_to_limbs`. ``radix``: limbs from the LSD
+    loop, which nothing else holds and whose 64-bit result is one column
+    (hi, lo its halves), so unsigned keys in ascending order come back as
+    its own words (no join, no clone)."""
     width = twiddle.bit_width(dtype)
     u = twiddle.unsigned_dtype(dtype)
+    n = limbs[0].shape[0]
     if width < 32:
+        if radix:
+            _staged(n * (4 + dtype.itemsize))
         narrow = torch.int8 if width == 8 else torch.int16
         bits = limbs[0].view(torch.int32).to(narrow).view(u)
     elif width == 32:
         bits = limbs[0]
+    elif radix and hist_lib.is_pair(limbs[1], limbs[0]):
+        bits = hist_lib.column_of(limbs[1]).view(u)
     else:
+        if radix:
+            _staged(16 * n)
         hi, lo = (q.view(torch.int32) for q in limbs)
         bits = torch.stack([lo, hi], dim=1).view(torch.int64).reshape(-1).view(u)
-    return twiddle.twiddle_out(bits, dtype, descending=descending)
+    if radix:
+        _staged(_twiddle_bytes(dtype, n, descending))
+    return twiddle.twiddle_out(bits, dtype, descending=descending,
+                               copy=not radix)
 
 
 # ---------------------------------------------------------------------------
@@ -491,9 +562,11 @@ def sort(keys: torch.Tensor, *, descending: bool = False,
         return keys.clone()
     if cfg.engine == "bitonic" and full_range(keys.dtype, begin_bit, end_bit):
         return _sort_keys_bitonic(keys, descending, cfg)
-    limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit)
+    radix = cfg.engine == "radix"
+    limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit,
+                                     radix)
     limbs, _ = _sort_limbs(limbs, limb_bits, [], cfg)
-    return _limbs_to_key(limbs, keys.dtype, descending)
+    return _limbs_to_key(limbs, keys.dtype, descending, radix)
 
 
 @traced
@@ -521,10 +594,12 @@ def sort_pairs(keys: torch.Tensor, values, *, descending: bool = False,
         _check_1d(f"values leaf {i}", v, n, keys.device)
     if n == 0:
         return keys.clone(), _unflatten(spec, iter([v.clone() for v in leaves]))
-    limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit)
+    radix = cfg.engine == "radix"
+    limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit,
+                                     radix)
     limbs, out = _sort_limbs(limbs, limb_bits, leaves, cfg, stable=stable,
                              unique_leading_payload=unique_leading_payload)
-    return (_limbs_to_key(limbs, keys.dtype, descending),
+    return (_limbs_to_key(limbs, keys.dtype, descending, radix),
             _unflatten(spec, iter(out)))
 
 
@@ -571,9 +646,10 @@ def sort_struct(key_columns, values=None, *, descending: bool = False,
         out_cols = tuple(c.clone() for c in cols)
         out = [v.clone() for v in leaves]
     else:
+        radix = cfg.engine == "radix"
         limbs, limb_bits, spans = [], [], []
         for col in cols:
-            lb, bb = _key_to_limbs(col, descending, None, None)
+            lb, bb = _key_to_limbs(col, descending, None, None, radix)
             spans.append(len(lb))
             limbs += lb
             limb_bits += bb
@@ -582,7 +658,7 @@ def sort_struct(key_columns, values=None, *, descending: bool = False,
         out_cols, i = [], 0
         for col, span in zip(cols, spans):
             out_cols.append(_limbs_to_key(limbs[i:i + span], col.dtype,
-                                          descending))
+                                          descending, radix))
             i += span
         out_cols = tuple(out_cols)
     if values is None:

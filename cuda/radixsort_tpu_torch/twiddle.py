@@ -128,14 +128,16 @@ def greater(t: torch.Tensor, scalar) -> torch.Tensor:
 
 
 def twiddle_in(keys: torch.Tensor, descending: bool = False) -> torch.Tensor:
-    """Map keys to unsigned bits whose unsigned order equals the sort order."""
+    """Map keys to unsigned bits whose unsigned order equals the sort order.
+    Unsigned keys in ascending order are their own bits: the result is a
+    view of ``keys`` (no copy), which callers read and never write."""
     d = keys.dtype
     u = unsigned_dtype(d)
     width = bit_width(d)
     sign = sign_min(width)
     raw = signed_view(keys)
     if d in _UNSIGNED:
-        bits = raw.clone()
+        bits = raw
     elif d in _FLOATS:
         # canonicalise -0.0 (exactly the sign bit) to +0.0 on the raw bits,
         # so denormals never fall into the zero bucket
@@ -149,8 +151,11 @@ def twiddle_in(keys: torch.Tensor, descending: bool = False) -> torch.Tensor:
 
 
 def twiddle_out(bits: torch.Tensor, dtype: torch.dtype,
-                descending: bool = False) -> torch.Tensor:
-    """Inverse of :func:`twiddle_in` (modulo -0.0 canonicalisation)."""
+                descending: bool = False, *, copy: bool = True) -> torch.Tensor:
+    """Inverse of :func:`twiddle_in` (modulo -0.0 canonicalisation).
+    Unsigned keys in ascending order are copied out of ``bits``, or with
+    ``copy=False`` (bits that only the caller holds, such as a sort's own
+    output) returned as a view of them."""
     u = unsigned_dtype(dtype)
     if bits.dtype.itemsize != u.itemsize:
         raise TypeError(f"{bits.dtype} bits cannot hold {dtype} keys")
@@ -160,7 +165,7 @@ def twiddle_out(bits: torch.Tensor, dtype: torch.dtype,
     if descending:
         b = ~b
     if dtype in _UNSIGNED:
-        out = b if descending else b.clone()
+        out = b.clone() if copy and not descending else b
     elif dtype in _FLOATS:
         # sign bit clear in twiddled space = negative float: undo the full
         # complement; otherwise clear the sign bit that twiddle_in set

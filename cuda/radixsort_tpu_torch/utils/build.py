@@ -45,13 +45,14 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # C entry points: name -> argtypes. Each returns a cudaError_t as int.
 _SIGNATURES = {
-    # keys (void**), masks (u32*), n_stages (int*), n_limbs, n, width, out,
-    # scratch, table_bins, grid, threads, stream
-    "rs_limb_histograms": [_P, _P, _P, _I, _I64, _I, _P, _P, _I, _I, _I, _P],
-    # in_planes (void**), out_planes (void**), n_planes, gbase, n, shift,
-    # width, status, threads, items, smem, stream
-    "rs_partition_stage": [_P, _P, _I, _P, _I64, _I, _I, _P, _I, _I, _I64,
+    # keys (void**), masks (u32*), n_stages (int*), halves (int*), n_limbs,
+    # n, width, out, scratch, table_bins, grid, threads, stream
+    "rs_limb_histograms": [_P, _P, _P, _P, _I, _I64, _I, _P, _P, _I, _I, _I,
                            _P],
+    # in_planes (void**), out_planes (void**), wide (int*), n_planes,
+    # key_half, gbase, n, shift, width, status, threads, items, smem, stream
+    "rs_partition_stage": [_P, _P, _P, _I, _I, _P, _I64, _I, _I, _P, _I, _I,
+                           _I64, _P],
     # values, flags (or NULL), out, n, dtype, op, scratch, scratch words,
     # stream
     "rs_segmented_scan": [_P, _P, _P, _I64, _I, _I, _P, _I64, _P],
