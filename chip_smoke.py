@@ -2941,13 +2941,14 @@ def dist_paths(gen: torch.Generator, mesh) -> dict:
     return paths
 
 
-def gloo_rank(rank: int, world: int) -> dict:
-    """One rank of the 4-rank gloo leg (tests/torch_world.py starts it):
-    D1, D3, D4 and D7's plan at 2^24 rows, on CUDA tensors of the one card;
-    each rank checks its block against the oracle, rank 0 the whole. The
-    joins' builds are above the broadcast threshold, so both hash-exchange
-    rows between the ranks."""
-    torch.cuda.set_device(0)
+def mesh_rank(rank: int, world: int, nccl: bool = False) -> dict:
+    """One rank of a 4-rank leg (tests/torch_world.py starts it): D1, D3,
+    D4 and D7's plan at 2^24 rows, over gloo with CUDA tensors of the one
+    card, or over NCCL with one card a rank (``nccl``), which adds D2, D5,
+    D6 and D7; each rank checks its block against the oracle, rank 0 the
+    whole. The joins' builds are above the broadcast threshold, so both
+    hash-exchange rows between the ranks."""
+    torch.cuda.set_device(rank if nccl else 0)
     load_port()
     from cuda.radixsort_tpu_torch.parallel import comm, dsort, shuffle
     from cuda.radixsort_tpu_torch.table import Table
@@ -3038,7 +3039,94 @@ def gloo_rank(rank: int, world: int) -> dict:
     expect(int(cnt) == c, f"gloo D7: {int(cnt)} rows, oracle {c}")
     expect_equal("gloo D7", "keys", t["k"][:c], wk)
     expect_equal("gloo D7", "sums", t["v"][:c], ws)
+    if nccl:
+        nccl_paths(rank, world, mesh, gen, timed)
     return res
+
+
+def nccl_paths(rank: int, world: int, mesh, gen: torch.Generator,
+               timed) -> None:
+    """D2, D5, D6 and D7 on the 4-rank NCCL leg, each rank's block against
+    the oracle of the whole input (every rank makes the same input and
+    passes its rows [rank*s, (rank+1)*s))."""
+    from cuda.radixsort_tpu_torch.models import flagships
+    from cuda.radixsort_tpu_torch.parallel import dscan, dselect, dsort
+    from cuda.radixsort_tpu_torch.pipeline import query
+
+    n = N_GLOO
+    s = n // world
+    mine = slice(rank * s, (rank + 1) * s)
+
+    def block(counts):
+        return int(counts[:rank].sum()), int(counts[rank])
+
+    keys = (rand_bits(n, torch.uint32, gen).view(torch.int32)
+            & 0xFFFFFF).view(torch.uint32)  # 2^24 values: ties
+    vals = rand_bits(n, torch.uint32, gen)
+    ok, ov, counts, _ = timed("D2", lambda: dsort.sort_pairs_distributed(
+        keys[mine], vals[mine], mesh=mesh, n=n))
+    off, c = block(counts)
+    order = oracle_order(keys)[off:off + c]
+    expect(int(counts.sum()) == n, f"nccl D2: counts {counts.tolist()}")
+    expect_equal("nccl D2", "keys", ok[:c].view(torch.int32),
+                 keys.view(torch.int32)[order])
+    expect_equal("nccl D2", "values (stable)", ov[:c].view(torch.int32),
+                 vals.view(torch.int32)[order])
+
+    sk = torch.sort(torch.randint(0, 1 << 16, (n,), device="cuda",
+                                  generator=gen)).values.to(torch.int32)
+    sk = sk.view(torch.uint32)  # runs cross the shards
+    sv_ = torch.randint(-1000, 1000, (n,), dtype=torch.int32, device="cuda",
+                        generator=gen)
+    got = timed("D5", lambda: dscan.scan_by_key_distributed(
+        sk[mine], sv_[mine], mesh=mesh, n=n))
+    expect_equal("nccl D5", "running sums", got,
+                 oracle_scan_by_key(sk, sv_)[mine])
+
+    xk = (rand_bits(n, torch.uint32, gen).view(torch.int32)
+          & 0xFFFFFF).view(torch.uint32)
+    qk = (xk.view(torch.int32) % 50).view(torch.uint32)
+    qv = rand_bits(n, torch.uint32, gen)
+    qs = (0.25, 0.5, 0.75)
+    kth, (tv, ti), (u, uc), (gq, qcols, ng) = timed("D6", lambda: (
+        dselect.kth_value_distributed(xk[mine], n // 2, mesh=mesh, n=n),
+        dselect.top_k_distributed(xk[mine], TOP_K, mesh=mesh, n=n),
+        dselect.distinct_distributed(xk[mine], mesh=mesh, n=n),
+        dselect.groupby_quantile_distributed(qk[mine], qv[mine], qs,
+                                             mesh=mesh, max_groups=64, n=n)))
+    srt = oracle_sorted_bits(xk)
+    expect(int(kth.view(torch.int32)) == int(srt[n // 2]),
+           f"nccl D6: kth_value {int(kth)}")
+    wv, wi = oracle_top_k(xk, TOP_K)
+    expect_equal("nccl D6", "top_k values", tv.view(torch.int32), wv)
+    expect_equal("nccl D6", "top_k rows", ti, wi)
+    uniq = torch.unique(u32_to_i64(xk)).to(torch.int32)
+    off, c = block(uc)
+    expect(int(uc.sum()) == uniq.numel(), f"nccl D6: distinct {uc.tolist()}")
+    expect_equal("nccl D6", "distinct keys", u[:c].view(torch.int32),
+                 uniq[off:off + c])
+    wk, wcols = oracle_group_quantiles(qk, qv, qs)
+    g = wk.numel()
+    expect(int(ng) == g, f"nccl D6: {int(ng)} groups, oracle {g}")
+    expect_equal("nccl D6", "quantile groups", gq[:g].view(torch.int32),
+                 wk.to(torch.int32))
+    for q, col, w in zip(qs, qcols, wcols):
+        expect_close("nccl D6", f"q{q}", col[:g], w)
+
+    # the build is broadcast: each rank joins its own probe rows
+    _, (pk, pv, bk, bv) = flagships.filter_sort_join_query(
+        n, N_GLOO_BUILD // 2, generator=gen, device="cuda")
+    threshold = flagships.PROBE_VALUE_RANGE // 2
+    k, jpv, jbv, counts, _ = timed("D7 fsj", lambda: (
+        query.filter_sort_join_distributed(
+            pk[mine], pv[mine], bk, bv, threshold, mesh=mesh,
+            join_strategy="broadcast")))
+    wk, wpv, wbv, c, _ = oracle_fsj(pk[mine], pv[mine], bk, bv, threshold)
+    expect(int(counts[rank]) == c, f"nccl D7: {counts.tolist()}, {c}")
+    for what, got, want in (("keys", k[:c].view(torch.int32), wk),
+                            ("probe values", jpv[:c], wpv),
+                            ("build values", jbv[:c], wbv)):
+        expect_equal("nccl D7", what, got, want)
 
 
 def phase_distributed(gen: torch.Generator, launches: dict) -> dict:
@@ -3077,7 +3165,7 @@ def phase_distributed(gen: torch.Generator, launches: dict) -> dict:
         "torch_world", os.path.join(HERE, "tests", "torch_world.py"))
     world = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(world)
-    ranks = world.run_world(f"{os.path.abspath(__file__)}:gloo_rank",
+    ranks = world.run_world(f"{os.path.abspath(__file__)}:mesh_rank",
                             GLOO_RANKS, backend="gloo",
                             timeout=GLOO_TIMEOUT_S, threads=0)
     gloo = {p: statistics.median(r[p] for r in ranks) for p in ranks[0]}
@@ -3088,6 +3176,24 @@ def phase_distributed(gen: torch.Generator, launches: dict) -> dict:
         "medians: " + ", ".join(f"{p} {ms:.1f} ms" for p, ms in gloo.items())
         + f" (the leg's wall time {time.perf_counter() - t0:.1f} s)")
     out_ms["gloo_4_ranks_ms"] = gloo
+    if torch.cuda.device_count() < GLOO_RANKS:
+        log(f"[dist] 4 ranks over NCCL: not run, torch sees "
+            f"{torch.cuda.device_count()} card(s)")
+    else:
+        t0 = time.perf_counter()
+        ranks = world.run_world(f"{os.path.abspath(__file__)}:mesh_rank",
+                                GLOO_RANKS, backend="nccl",
+                                timeout=GLOO_TIMEOUT_S, threads=0,
+                                args=(True,))
+        nccl = {p: statistics.median(r[p] for r in ranks) for p in ranks[0]}
+        log(f"[dist] 4 ranks over NCCL, one card a rank, {N_GLOO} rows a "
+            "path: D1-D7 (D4 and D7's README plan by the hash route, D7's "
+            "filter_sort_join by the broadcast route) == oracle on every "
+            "rank; median of the ranks' "
+            "medians: " + ", ".join(f"{p} {ms:.2f} ms"
+                                   for p, ms in nccl.items())
+            + f" (the leg's wall time {time.perf_counter() - t0:.1f} s)")
+        out_ms["nccl_4_ranks_ms"] = nccl
     log(f"[dist] phase wall time {time.perf_counter() - t_phase:.1f} s")
     return out_ms
 
@@ -3626,6 +3732,12 @@ def main() -> int:
     kind, smi = phase_device()
     load_port()
     phase_build()
+    if "--only-distributed" in args:  # phase 6d alone
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        dist_ms = phase_distributed(gen, {})
+        log(json.dumps({"ok": True, "distributed_ms": dist_ms}))
+        return 0
     card_ops = phase_card_ops()
     surface = phase_surface()
     phase_self_test()

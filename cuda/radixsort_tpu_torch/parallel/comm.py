@@ -13,12 +13,23 @@ Neither backend takes every dtype: gloo refuses 2-byte tensors and
 unsigned 32-bit ones, and NCCL has no uint32 either. So data moves as a
 signed view of the same width (2-byte columns widen to int32 and narrow
 back), and only reductions see the value dtype (int32, int64, float32).
+
+Tracing: while a profiler runs, each collective runs inside a
+``record_function`` range ``comm.<op>`` (``comm.all_gather``,
+``comm.all_to_all``, ``comm.psum``, ``comm.pmax``). :data:`SENT_BYTES`
+counts the bytes every ``all_to_all`` and ``all_gather`` of this rank
+sends to other ranks, padding of the lanes included.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from cuda.radixsort_tpu_torch.utils import profiling
+
+# bytes this rank's all_to_all and all_gather calls sent to other ranks
+SENT_BYTES = 0
 
 # all_gather_into_tensor is all_gather_single in newer torch (same call)
 _gather_into = getattr(dist, "all_gather_single", None) or \
@@ -105,15 +116,29 @@ def _from_wire(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return w.view(dtype)
 
 
+def _span(op: str):
+    """The range ``comm.<op>`` while a profiler runs; else no range."""
+    if not profiling._profiling():
+        return profiling._NO_RANGE
+    return torch.profiler.record_function("comm." + op)
+
+
+def _count_sent(nbytes: int) -> None:
+    global SENT_BYTES
+    SENT_BYTES += nbytes
+
+
 def all_gather(x: torch.Tensor, ax: Axis, *, tiled: bool = False):
     """x from every rank of the axis, in axis order: stacked on a new
     leading dimension, or concatenated along the first (``tiled``). A 0-d
     x gathers to (size,)."""
-    w = _to_wire(x.reshape(-1) if x.dim() == 0 else x)
-    out = torch.empty((ax.size * w.shape[0],) + tuple(w.shape[1:]),
-                      dtype=w.dtype, device=w.device)
-    _gather_into(out, w, group=ax.group)
-    out = _from_wire(out, x.dtype)
+    with _span("all_gather"):
+        w = _to_wire(x.reshape(-1) if x.dim() == 0 else x)
+        out = torch.empty((ax.size * w.shape[0],) + tuple(w.shape[1:]),
+                          dtype=w.dtype, device=w.device)
+        _gather_into(out, w, group=ax.group)
+        _count_sent(w.numel() * w.element_size() * (ax.size - 1))
+        out = _from_wire(out, x.dtype)
     if x.dim() == 0 or tiled:
         return out
     return out.reshape((ax.size,) + tuple(x.shape))
@@ -124,9 +149,14 @@ def all_to_all(x: torch.Tensor, ax: Axis, *, async_op: bool = False):
     rank j; block i of the result came from rank i. With ``async_op`` the
     exchange is only issued: returns a callable that waits and returns
     the result."""
-    w = _to_wire(x)
-    out = torch.empty_like(w)
-    work = dist.all_to_all_single(out, w, group=ax.group, async_op=async_op)
+    with _span("all_to_all"):
+        w = _to_wire(x)
+        out = torch.empty_like(w)
+        work = dist.all_to_all_single(out, w, group=ax.group,
+                                      async_op=async_op)
+        # block j goes to rank j: all but this rank's own block leave it
+        _count_sent(w.numel() * w.element_size() // ax.size
+                    * (ax.size - 1))
     if not async_op:
         return _from_wire(out, x.dtype)
 
@@ -150,8 +180,10 @@ def _reduce(x: torch.Tensor, ax: Axis, op) -> torch.Tensor:
 
 def psum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     """Sum over the axis (a bool sums as int32, as ``psum`` of a bool)."""
-    return _reduce(x, ax, dist.ReduceOp.SUM)
+    with _span("psum"):
+        return _reduce(x, ax, dist.ReduceOp.SUM)
 
 
 def pmax(x: torch.Tensor, ax: Axis) -> torch.Tensor:
-    return _reduce(x, ax, dist.ReduceOp.MAX)
+    with _span("pmax"):
+        return _reduce(x, ax, dist.ReduceOp.MAX)

@@ -321,10 +321,17 @@ def exchange_cap_for_sort(keys: torch.Tensor, *, mesh, axis_name="x",
     return comm.pmax(counts.max(), comm.Axis(mesh, axis_name))
 
 
-def round_cap(c: int, quantum: int = 128) -> int:
-    """Round a measured cap up to a power of two (>= quantum)."""
+def round_cap(c: int, quantum: int = 128, steps: int = 1) -> int:
+    """Round a measured cap up to a power of two p (>= quantum). With
+    ``steps`` > 1, up to the next multiple of p / (2 * steps) instead: at
+    most a ``steps``-th above the measured cap, where p can be nearly twice
+    it."""
     c = max(int(c), quantum)
-    return 1 << (c - 1).bit_length()
+    p = 1 << (c - 1).bit_length()
+    if steps == 1:
+        return p
+    grain = max(p // (2 * steps), 1)
+    return -(-c // grain) * grain
 
 
 @traced

@@ -23,8 +23,15 @@ lands in ``stats``.
 ``run(mesh=...)`` runs the whole plan on every rank over its block of a
 sharded source table (``Table.shard``; a full table is sharded first):
 filters stay local, joins probe a replicated build side (or hash-localise
-a large one), group-bys are two-phase (``parallel/shuffle.py``), and
-``order_by`` / ``limit`` gather the running result to every rank.
+a large one, or a build that is itself a block of a sharded table),
+group-bys are two-phase (``parallel/shuffle.py``), and ``order_by`` /
+``limit`` gather the running result to every rank. On a positional block
+every exchange's lanes are as long as the sender's block, the JAX plan's
+layout. On a block of a partitioned table (``Table.from_partition``)
+each exchange first measures its largest lane (one pmax, read by the host
+under ``sync.exchange_cap``) and sizes its lanes by it, so no column
+grows by the number of ranks; the gather before ``order_by`` moves only
+the longest valid prefix.
 """
 
 from __future__ import annotations
@@ -456,6 +463,22 @@ _AUTO_QUANTILE_GROUPS = 64
 # rank warns: order a large table with parallel.dsort instead
 _GATHER_WARN_BYTES = 256 << 20
 
+# a sized exchange's lanes are its largest count rounded up in steps of a
+# sixteenth of the power of two above it: at most an eighth wider than the
+# count, where a power of two can be twice it
+_CAP_STEPS = 8
+
+
+class _Ranks(NamedTuple):
+    """Where a distributed plan runs: the mesh axis (``comm.Axis``) and
+    whether its exchanges are sized by the rows they move (the source is a
+    block of a partitioned table) or padded to the sender's block as the
+    JAX plan pads them (a positional block, kept in the JAX layout)."""
+    ax: Any
+    mesh: Any
+    axis_name: Any
+    sized: bool
+
 
 def _auto_route_quantiles(stages, src, n, mesh, axis_name):
     """Fill in a missing ``max_groups`` hint of a quantiles stage when
@@ -491,6 +514,29 @@ def _auto_route_quantiles(stages, src, n, mesh, axis_name):
     return out
 
 
+def _count_tensor(c, device) -> torch.Tensor:
+    """A count (int, 0-d or (ndev,) tensor or sequence) as int32 on the
+    device; an int is filled there, not copied from the host."""
+    if isinstance(c, torch.Tensor):
+        return c.to(device=device, dtype=torch.int32)
+    if isinstance(c, int):
+        return torch.full((), c, dtype=torch.int32, device=device)
+    return torch.as_tensor(c, dtype=torch.int32, device=device)
+
+
+def _block_count(t: Table, count, r: _Ranks) -> torch.Tensor:
+    """This rank's valid rows of a block: ``count`` (this rank's, or the
+    (ndev,) counts a distributed run returns), else the block's own count
+    (a partitioned table's), else its positional rows."""
+    if count is None:
+        count = t._count
+    if count is None:
+        s = t.num_rows
+        count = min(max(t._global_rows - r.ax.index * s, 0), s)
+    c = _count_tensor(count, t.device)
+    return c[r.ax.index] if c.dim() == 1 else c
+
+
 @traced
 def _run_distributed(q: Query, mesh, axis_name, config):
     from cuda.radixsort_tpu_torch.parallel import comm
@@ -499,58 +545,63 @@ def _run_distributed(q: Query, mesh, axis_name, config):
     ax = comm.Axis(mesh, axis_name)
     ndev = ax.size
     src, n = _sharded(q._source, mesh, axis_name)
-    s = src.num_rows
     cols = _cols(src)
-    plan_stages = _auto_route_quantiles(q._stages, src, n, mesh, axis_name)
-    cnt = torch.tensor(min(max(n - ax.index * s, 0), s), dtype=torch.int32,
-                       device=src.device)
+    r = _Ranks(ax, mesh, axis_name, src._count is not None)
+    if r.sized:
+        plan_stages = q._stages
+        cnt = _block_count(src, None, r)
+    else:
+        s = src.num_rows
+        plan_stages = _auto_route_quantiles(q._stages, src, n, mesh,
+                                            axis_name)
+        cnt = torch.tensor(min(max(n - ax.index * s, 0), s),
+                           dtype=torch.int32, device=src.device)
     rep = False  # True once a stage gathered to a replicated view
     stats: dict[str, Any] = {}
     for i, st in enumerate(plan_stages):
         if st.op == "join":
-            # two reasons to hash-localise instead of probing the whole
-            # build: outer joins (right/full) must emit each unmatched
-            # build row once, and a large build is better dealt to its
-            # hash owners
-            st.args[0]._whole("a distributed plan's join build")
-            bt = _cols(st.args[0])
-            nbuild = st.args[0].num_rows
-            if not rep and (st.args[4] in ("right", "full")
-                            or nbuild > _JOIN_BROADCAST_ROWS):
-                cols, cnt = _dist_join_hash(cols, cnt, st, bt, ax, mesh,
-                                            axis_name, config)
+            # three reasons to hash-localise instead of probing the whole
+            # build: a sharded build has its rows spread over the ranks,
+            # outer joins (right/full) must emit each unmatched build row
+            # once, and a large build is better dealt to its hash owners
+            build = st.args[0]
+            if build._global_rows is not None:
+                if rep:
+                    raise ValueError(
+                        "a distributed plan joins a sharded build only "
+                        "before order_by/limit gather the result")
+                cols, cnt = _dist_join_hash(cols, cnt, st, r, config)
+            elif not rep and (st.args[4] in ("right", "full")
+                              or build.num_rows > _JOIN_BROADCAST_ROWS):
+                cols, cnt = _dist_join_hash(cols, cnt, st, r, config)
             else:
-                cols, cnt = _join_impl(cols, cnt, st, bt, config)
+                cols, cnt = _join_impl(cols, cnt, st, _cols(build), config)
         elif rep or st.op in ("select", "with_column"):
             t2, cnt = _EXEC[st.op](Table(cols), cnt, st, config)
             cols = _cols(t2)
         elif st.op == "where":
             cols, cnt = _dist_where(cols, cnt, st.args[0], config)
         elif st.op == "groupby":
-            cols, cnt = _dist_groupby(cols, cnt, st, ax, mesh, axis_name,
-                                      config)
+            cols, cnt = _dist_groupby(cols, cnt, st, r, config)
         elif st.op == "groupby_agg":
-            cols, cnt = _dist_groupby_agg(cols, cnt, st, ax, mesh, axis_name,
-                                          config)
+            cols, cnt = _dist_groupby_agg(cols, cnt, st, r, config)
         elif st.op == "quantiles":
-            cols, cnt = _dist_quantiles(cols, cnt, st, ax, mesh, axis_name,
-                                        config)
+            cols, cnt = _dist_quantiles(cols, cnt, st, r, config)
         elif st.op == "distinct":
-            cols, cnt = _dist_distinct(cols, cnt, st, ax, mesh, axis_name,
-                                       config)
+            cols, cnt = _dist_distinct(cols, cnt, st, r, config)
         elif st.op == "window":
-            cols, cnt = _dist_window(cols, cnt, st, ax, mesh, axis_name,
-                                     config)
+            cols, cnt = _dist_window(cols, cnt, st, r, config)
         elif st.op in ("order_by", "limit"):
             if not rep:
-                cols, cnt = _dist_gather(cols, cnt, ax)
+                cols, cnt = _dist_gather(cols, cnt, r)
                 rep = True
             t2, cnt = _EXEC[st.op](Table(cols), cnt, st, config)
             cols = _cols(t2)
         stats[f"{i}:{st.op}"] = cnt if rep else comm.psum(cnt, ax)
     if rep:
         return Table(cols), cnt, stats
-    return (Table(cols, global_rows=_rows(cols) * ndev),
+    return (Table(cols, global_rows=_rows(cols) * ndev,
+                  count=cnt if r.sized else None),
             _gather_counts(cnt, mesh, axis_name), stats)
 
 
@@ -574,17 +625,48 @@ def _dist_where(cols, cnt, pred, config):
     return filter_columns(mask, cols)
 
 
-def _exchange_by(cols, names, dest, ax, mesh, axis_name):
-    """Exchange the named columns' rows to dest; (received cols, valid)."""
+def _host_max(x: torch.Tensor, r: _Ranks) -> int:
+    """The largest value of x (0-d) over the ranks, read by the host."""
+    from cuda.radixsort_tpu_torch.parallel import comm
+    from cuda.radixsort_tpu_torch.utils.profiling import sync_span
+
+    most = comm.pmax(x, r.ax)
+    with sync_span("exchange_cap"):
+        return int(most)
+
+
+def _lane_cap(dest, rows: int, r: _Ranks, sized: bool) -> int:
+    """Rows of each lane of an exchange: the sender's whole block
+    (``rows``), as the JAX plan pads them, or, sized, the most rows any
+    rank sends one rank (one pmax), rounded up as ``_CAP_STEPS`` says."""
+    from cuda.radixsort_tpu_torch.ops.histogram import count_bins
+    from cuda.radixsort_tpu_torch.parallel.dsort import round_cap
+
+    if not sized:
+        return rows
+    most = _host_max(count_bins(dest, r.ax.size).max(), r)
+    return round_cap(most, steps=_CAP_STEPS)
+
+
+def _exchange(columns: list, dest, r: _Ranks, sized: bool | None = None):
+    """exchange_rows of the columns to dest (``parallel/shuffle.py``),
+    lanes as :func:`_lane_cap` sizes them; (received columns, valid)."""
     from cuda.radixsort_tpu_torch.parallel.shuffle import exchange_rows
 
-    recv, rvalid = exchange_rows([cols[k] for k in names], dest, ax.size,
-                                 axis_name, _rows(cols), mesh=mesh)
+    cap = _lane_cap(dest, columns[0].shape[0], r,
+                    r.sized if sized is None else sized)
+    return exchange_rows(columns, dest, r.ax.size, r.axis_name, cap,
+                         mesh=r.mesh)
+
+
+def _exchange_by(cols, names, dest, r: _Ranks, sized: bool | None = None):
+    """Exchange the named columns' rows to dest; (received cols, valid)."""
+    recv, rvalid = _exchange([cols[k] for k in names], dest, r, sized)
     return dict(zip(names, recv)), rvalid
 
 
 @traced
-def _dist_groupby(cols, cnt, st, ax, mesh, axis_name, config):
+def _dist_groupby(cols, cnt, st, r: _Ranks, config):
     """The single-key group-by as the multi form with one key and one
     aggregate; a median cannot travel as a partial, so its raw rows
     hash-exchange and each group's values land on one rank."""
@@ -594,46 +676,59 @@ def _dist_groupby(cols, cnt, st, ax, mesh, axis_name, config):
     out_name = value if value != key else agg
     if agg == "median":
         dest = torch.where(_prefix(cols, cnt),
-                           _owner_of_keys(cols[key], ax.size), ax.size)
+                           _owner_of_keys(cols[key], r.ax.size), r.ax.size)
         recv, rvalid = _exchange_by(cols, list(dict.fromkeys((key, value))),
-                                    dest, ax, mesh, axis_name)
+                                    dest, r)
         gk, gv, c2 = groupby(recv[key], recv[value], agg="median",
                              valid=rvalid, config=config)
         return {key: gk, out_name: gv}, c2
     st2 = _Stage("groupby_agg", ((key,), ((out_name, value, agg),)), {})
-    return _dist_groupby_agg(cols, cnt, st2, ax, mesh, axis_name, config)
+    return _dist_groupby_agg(cols, cnt, st2, r, config)
 
 
 @traced
-def _dist_join_hash(cols, cnt, st, build, ax, mesh, axis_name, config):
-    """Hash-localised join: probe rows hash-exchange and each rank keeps
-    the build rows it owns, so every key lives on one rank and the local
-    join is right for every ``how``."""
+def _dist_join_hash(cols, cnt, st, r: _Ranks, config):
+    """Hash-localised join: probe rows hash-exchange and every build row
+    lands on its key's owner, so every key lives on one rank and the local
+    join is right for every ``how``. A whole (replicated) build keeps the
+    rows this rank owns; a block of a sharded build sends its valid rows'
+    key and value columns to their owners, in lanes sized by their
+    counts."""
     from cuda.radixsort_tpu_torch.parallel.shuffle import _owner_of_key_tuple
 
-    _, on, value, build_count, how = st.args
+    build, on, value, build_count, how = st.args
     on_cols = on if isinstance(on, tuple) else (on,)
     dev = cnt.device
+    ndev = r.ax.size
 
     def owner(table_cols):
-        return _owner_of_key_tuple([table_cols[k] for k in on_cols], ax.size)
+        return _owner_of_key_tuple([table_cols[k] for k in on_cols], ndev)
 
-    dest = torch.where(_prefix(cols, cnt), owner(cols), ax.size)
-    recv, rvalid = _exchange_by(cols, list(cols), dest, ax, mesh, axis_name)
+    dest = torch.where(_prefix(cols, cnt), owner(cols), ndev)
+    recv, rvalid = _exchange_by(cols, list(cols), dest, r)
     rcols, rcnt = filter_columns(rvalid, recv)
-    nb = build[on_cols[0]].shape[0]
-    mine = owner(build) == ax.index
-    if build_count is not None:
-        mine = mine & (torch.arange(nb, dtype=torch.int32, device=dev)
-                       < torch.as_tensor(build_count, dtype=torch.int32,
-                                         device=dev))
-    blocal, bcnt = filter_columns(mine, build)
+    if build._global_rows is None:
+        bt = _cols(build)
+        nb = bt[on_cols[0]].shape[0]
+        mine = owner(bt) == r.ax.index
+        if build_count is not None:
+            mine = mine & (torch.arange(nb, dtype=torch.int32, device=dev)
+                           < torch.as_tensor(build_count, dtype=torch.int32,
+                                             device=dev))
+        blocal, bcnt = filter_columns(mine, bt)
+    else:
+        need = list(dict.fromkeys(on_cols + ((value,) if value else ())))
+        bt = {k: build[k] for k in need}
+        bdest = torch.where(_prefix(bt, _block_count(build, build_count, r)),
+                            owner(bt), ndev)
+        brecv, brvalid = _exchange_by(bt, need, bdest, r, sized=True)
+        blocal, bcnt = filter_columns(brvalid, brecv)
     st2 = _Stage("join", (None, on, value, bcnt, how), {})
     return _join_impl(rcols, rcnt, st2, blocal, config)
 
 
 @traced
-def _dist_quantiles(cols, cnt, st, ax, mesh, axis_name, config):
+def _dist_quantiles(cols, cnt, st, r: _Ranks, config):
     """Quantiles cannot travel as partials: the raw (key, value) rows
     hash-exchange. With a ``max_groups`` hint no row moves: histogram
     refinement resolves every (group, q) target, and the replicated result
@@ -652,17 +747,18 @@ def _dist_quantiles(cols, cnt, st, ax, mesh, axis_name, config):
                 "quantiles max_groups hint: <=32-bit key/value dtypes")
         gkb, qstack, n_groups = quantile_refine_shard(
             _bits_of(cols[key]), _bits_of(cols[value]), valid0, qs, max_groups,
-            cols[value].dtype, axis_name, mesh=mesh)
+            cols[value].dtype, r.axis_name, mesh=r.mesh)
         gk = _keys_of_bits(gkb, cols[key].dtype, False)
         slot = torch.arange(max_groups, dtype=torch.int32, device=cnt.device)
-        mine = ((slot % ax.size) == ax.index) & (
+        mine = ((slot % r.ax.size) == r.ax.index) & (
             slot < torch.clamp_max(n_groups, max_groups))
         out = {key: gk}
         out.update(zip(names, qstack))
         return filter_columns(mine, out)
-    dest = torch.where(valid0, _owner_of_keys(cols[key], ax.size), ax.size)
+    dest = torch.where(valid0, _owner_of_keys(cols[key], r.ax.size),
+                       r.ax.size)
     recv, rvalid = _exchange_by(cols, list(dict.fromkeys((key, value))),
-                                dest, ax, mesh, axis_name)
+                                dest, r)
     gk, qcols, c2 = groupby_quantile(recv[key], recv[value], qs, valid=rvalid,
                                      config=config)
     out = {key: gk}
@@ -671,40 +767,38 @@ def _dist_quantiles(cols, cnt, st, ax, mesh, axis_name, config):
 
 
 @traced
-def _dist_distinct(cols, cnt, st, ax, mesh, axis_name, config):
+def _dist_distinct(cols, cnt, st, r: _Ranks, config):
     """Two-phase dedup: local distinct, hash-of-key-tuple exchange of the
     survivors, final distinct per rank."""
-    from cuda.radixsort_tpu_torch.parallel.shuffle import (
-        _owner_of_key_tuple, exchange_rows)
+    from cuda.radixsort_tpu_torch.parallel.shuffle import _owner_of_key_tuple
 
     keys = st.args[0] or tuple(sorted(cols))
     kc, _, c1 = groupby_multi(tuple(cols[k] for k in keys), (), (),
                               valid=_prefix(cols, cnt), config=config)
     dest = torch.where(_first_rows(kc[0], c1),
-                       _owner_of_key_tuple(kc, ax.size), ax.size)
-    recv, rvalid = exchange_rows(list(kc), dest, ax.size, axis_name,
-                                 kc[0].shape[0], mesh=mesh)
+                       _owner_of_key_tuple(kc, r.ax.size), r.ax.size)
+    recv, rvalid = _exchange(list(kc), dest, r)
     k2, _, c2 = groupby_multi(tuple(recv), (), (), valid=rvalid,
                               config=config)
     return dict(zip(keys, k2)), c2
 
 
 @traced
-def _dist_window(cols, cnt, st, ax, mesh, axis_name, config):
+def _dist_window(cols, cnt, st, r: _Ranks, config):
     """Whole rows hash-exchange by partition key (every partition lands on
     one rank), then the single-GPU window runs per rank."""
     from cuda.radixsort_tpu_torch.parallel.shuffle import _owner_of_keys
 
     part, okey, spec, desc = st.args
     dest = torch.where(_prefix(cols, cnt),
-                       _owner_of_keys(cols[part], ax.size), ax.size)
-    recv, rvalid = _exchange_by(cols, list(cols), dest, ax, mesh, axis_name)
+                       _owner_of_keys(cols[part], r.ax.size), r.ax.size)
+    recv, rvalid = _exchange_by(cols, list(cols), dest, r)
     return window_table(recv, part, okey, spec, valid=rvalid,
                         descending=desc, config=config)
 
 
 @traced
-def _dist_groupby_agg(cols, cnt, st, ax, mesh, axis_name, config):
+def _dist_groupby_agg(cols, cnt, st, r: _Ranks, config):
     """Two-phase multi-key multi-aggregate group-by: local partials, a
     hash-of-key-tuple exchange, a final re-aggregation. A count partial
     re-reduces as a sum, a mean travels as (sum, count), var/std as (sum,
@@ -712,15 +806,14 @@ def _dist_groupby_agg(cols, cnt, st, ax, mesh, axis_name, config):
     moves the raw rows instead."""
     from cuda.radixsort_tpu_torch.ops.aggregate import (_mean_dtype,
                                                         _moments_to_var)
-    from cuda.radixsort_tpu_torch.parallel.shuffle import (
-        _owner_of_key_tuple, exchange_rows)
+    from cuda.radixsort_tpu_torch.parallel.shuffle import _owner_of_key_tuple
 
     keys, aggs = st.args
     if any(a == "median" for _, _, a in aggs):
         dest = torch.where(_prefix(cols, cnt), _owner_of_key_tuple(
-            [cols[k] for k in keys], ax.size), ax.size)
+            [cols[k] for k in keys], r.ax.size), r.ax.size)
         need = list(dict.fromkeys(list(keys) + [v for _, v, _ in aggs]))
-        recv, rvalid = _exchange_by(cols, need, dest, ax, mesh, axis_name)
+        recv, rvalid = _exchange_by(cols, need, dest, r)
         return _groupby_agg_cols(recv, keys, aggs, rvalid, config)
     part_arrays, part_aggs, assemble = [], [], []
     for n_, v, a in aggs:
@@ -743,9 +836,8 @@ def _dist_groupby_agg(cols, cnt, st, ax, mesh, axis_name, config):
                                tuple(part_arrays), tuple(part_aggs),
                                valid=_prefix(cols, cnt), config=config)
     dest = torch.where(_first_rows(kc[0], c1),
-                       _owner_of_key_tuple(kc, ax.size), ax.size)
-    recv, rvalid = exchange_rows(list(kc) + list(vc), dest, ax.size,
-                                 axis_name, kc[0].shape[0], mesh=mesh)
+                       _owner_of_key_tuple(kc, r.ax.size), r.ax.size)
+    recv, rvalid = _exchange(list(kc) + list(vc), dest, r)
     nk = len(keys)
     re_aggs = tuple("sum" if a == "count" else a for a in part_aggs)
     k2, v2, c2 = groupby_multi(tuple(recv[:nk]), tuple(recv[nk:]), re_aggs,
@@ -764,12 +856,18 @@ def _dist_groupby_agg(cols, cnt, st, ax, mesh, axis_name, config):
 
 
 @traced
-def _dist_gather(cols, cnt, ax):
+def _dist_gather(cols, cnt, r: _Ranks):
     """Gather the sharded running result to a replicated, compacted view
     (order_by/limit need the global view; meant for small, aggregated
-    results)."""
+    results). Sized, only the longest valid prefix of the ranks' blocks
+    travels."""
     from cuda.radixsort_tpu_torch.parallel import comm
+    from cuda.radixsort_tpu_torch.parallel.shuffle import _pad_to
 
+    if r.sized:
+        most = _host_max(cnt, r)
+        cols = {k: v[:most] if v.shape[0] >= most else _pad_to(v, most)
+                for k, v in cols.items()}
     gathered = _rows(cols) * sum(v.dtype.itemsize for v in cols.values())
     if gathered > _GATHER_WARN_BYTES:
         warnings.warn(
@@ -777,7 +875,7 @@ def _dist_gather(cols, cnt, ax):
             " MiB per shard to EVERY device (replicated view); order large"
             " tables with parallel.dsort before the plan, or move order_by"
             " after the aggregation", stacklevel=3)
-    gvalid = comm.all_gather(_prefix(cols, cnt), ax, tiled=True)
-    gcols = {k: comm.all_gather(v, ax, tiled=True) for k, v in cols.items()}
+    gvalid = comm.all_gather(_prefix(cols, cnt), r.ax, tiled=True)
+    gcols = {k: comm.all_gather(v, r.ax, tiled=True) for k, v in cols.items()}
     out, _ = filter_columns(gvalid, gcols)
-    return out, comm.psum(cnt, ax)
+    return out, comm.psum(cnt, r.ax)

@@ -8,11 +8,15 @@ rows, which later operators of a Table do not mask (``pipeline/plan.py``
 threads the count). It is a plain class: the reference's pytree protocol
 has no counterpart.
 
-Sharding is SPMD: every rank calls ``Table.shard`` with the same full
-table and keeps its own padded block, which records the global row count;
-the distributed operators below take such a table (or shard a full one)
-and return this rank's block with the (ndev,) counts and the statistics
-every rank shares (``parallel/*.py``). A block stays marked as one:
+Sharding is SPMD, in two forms. Positional: every rank calls
+``Table.shard`` with the same full table and keeps its own padded block,
+which records the global row count; the distributed operators below take
+such a table (or shard a full one) and return this rank's block with the
+(ndev,) counts and the statistics every rank shares (``parallel/*.py``).
+Partitioned: every rank calls ``Table.from_partition`` with its own rows
+only, of any number (a hash partition, as a warehouse holds it); the block
+records this rank's count, and ``Query.run(mesh=)`` runs on it, sizing
+each exchange by the rows it moves. A block stays marked as one:
 ``select`` and ``with_column`` keep the mark, the distributed operators
 mark the blocks they return, and the one-device operators, which would
 see only this rank's rows, refuse a block.
@@ -37,17 +41,49 @@ class Table:
     """Immutable named-column batch. Columns: equal-length 1-D tensors."""
 
     def __init__(self, columns: Mapping[str, torch.Tensor], *,
-                 global_rows: int | None = None):
+                 global_rows: int | None = None, count=None):
         """``global_rows``: set on one rank's block of a sharded table, the
-        whole table's row count."""
+        whole table's row count (on a block a plan returns, its length
+        times the ranks). ``count``: set on a block of a partitioned table,
+        this rank's valid rows [0, count) (an int or a 0-d tensor)."""
         cols = dict(columns)
         if not cols:
             raise ValueError("Table needs at least one column")
         lens = {k: v.shape[0] for k, v in cols.items()}
         if len(set(lens.values())) != 1:
             raise ValueError(f"column lengths differ: {lens}")
+        if count is not None and global_rows is None:
+            raise ValueError("count= marks a block: give global_rows= too")
         self._cols = cols
         self._global_rows = global_rows
+        self._count = count
+
+    @classmethod
+    def from_partition(cls, columns: Mapping[str, torch.Tensor], mesh,
+                       axis_name: str = "x", *, count: int | None = None
+                       ) -> "Table":
+        """This rank's block of a table that is spread over the mesh axis
+        as the ranks hold it: its own rows, any number of them (rows [0,
+        count) valid; all by default), none of another rank's and no
+        padding to the largest block. The columns are kept, not copied.
+        Every rank calls it: the ranks' counts are gathered once (the host
+        waits for them), and their sum is the global row count.
+        ``Query.run(mesh=)`` runs on such a block, or joins it as a build
+        side, with every exchange sized by the rows it moves."""
+        from cuda.radixsort_tpu_torch.parallel import comm
+        from cuda.radixsort_tpu_torch.utils.profiling import sync_span
+
+        t = cls(columns)
+        count = t.num_rows if count is None else int(count)
+        if not 0 <= count <= t.num_rows:
+            raise ValueError(f"count {count} outside a block of "
+                             f"{t.num_rows} rows")
+        counts = comm.all_gather(torch.full((), count, dtype=torch.int64,
+                                            device=t.device),
+                                 comm.Axis(mesh, axis_name))
+        with sync_span("partition_counts"):
+            total = int(counts.sum())
+        return cls(t._cols, global_rows=total, count=count)
 
     def _whole(self, what: str) -> None:
         """Refuse one rank's block of a sharded table: ``what`` sees only
@@ -78,14 +114,14 @@ class Table:
 
     def select(self, names: Iterable[str]) -> "Table":
         return Table({k: self._cols[k] for k in names},
-                     global_rows=self._global_rows)
+                     global_rows=self._global_rows, count=self._count)
 
     def with_column(self, name: str, col: torch.Tensor) -> "Table":
         """The table with ``col`` added or replaced (on a block, this
         rank's rows of the column)."""
         d = dict(self._cols)
         d[name] = col
-        return Table(d, global_rows=self._global_rows)
+        return Table(d, global_rows=self._global_rows, count=self._count)
 
     def __repr__(self):
         return (f"Table({self.num_rows} rows, "

@@ -163,7 +163,30 @@ def _ranks(rank, world):
         (rx,), valid = tshuffle.exchange_rows(
             [shard(data)], shard(dest), world, "x", cap, mesh=mesh)
         out["exchange", key] = (to_numpy(rx), to_numpy(valid))
+    out["comm"] = _comm_trace(mesh, shard)
     return out
+
+
+def _comm_trace(mesh, shard):
+    """(bytes SENT_BYTES grew by, comm.* ranges a profiler saw) of one
+    exchange_rows and one all_gather, and the ranges seen without a
+    profiler (none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuda.radixsort_tpu_torch.parallel import comm
+
+    data, dest = _exchange_input(NDEV * 512, 13)
+    ax = comm.Axis(mesh, "x")
+    before = comm.SENT_BYTES
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tshuffle.exchange_rows([shard(data)], shard(dest), NDEV, "x", 512,
+                               mesh=mesh)
+        comm.all_gather(torch.arange(10, dtype=torch.int32), ax)
+    sent = comm.SENT_BYTES - before
+    seen = sorted({e.name for e in prof.events()
+                   if e.name.startswith("comm.")})
+    quiet = comm._span("all_gather") is comm.profiling._NO_RANGE
+    return sent, seen, data.dtype.itemsize, quiet
 
 
 @pytest.fixture(scope="module")
@@ -367,3 +390,20 @@ def test_owners_match_jax(dtype):
                 [from_numpy(a, "cpu"), from_numpy(b, "cpu")], ndev)),
             np.asarray(js._owner_of_key_tuple(
                 [jnp.asarray(a), jnp.asarray(b)], ndev)))
+
+
+def test_comm_counts_the_bytes_sent_to_other_ranks(ranks):
+    # exchange_rows: the valid flags (1 byte) and the column, ndev * cap
+    # rows each, of which the own lane stays; all_gather: 10 int32 to each
+    # of the three others
+    for r in range(NDEV):
+        sent, _, itemsize, _ = ranks[r]["comm"]
+        lanes = NDEV * 512 * (NDEV - 1) // NDEV
+        assert sent == lanes * (1 + itemsize) + 10 * 4 * (NDEV - 1)
+
+
+def test_comm_ranges_open_only_under_a_profiler(ranks):
+    for r in range(NDEV):
+        _, seen, _, quiet = ranks[r]["comm"]
+        assert seen == ["comm.all_gather", "comm.all_to_all", "comm.psum"]
+        assert quiet

@@ -1406,6 +1406,7 @@ EXCLUDED = {
     "ops/window.py:WINDOW_FNS": CONFIG,
     "models/flagships.py:PROBE_VALUE_RANGE": CONFIG,
     "table.py:Table.shard": DISTRIBUTED,
+    "table.py:Table.from_partition": DISTRIBUTED,
     "table.py:groupby_distributed": DISTRIBUTED,
     "table.py:join_distributed": DISTRIBUTED,
     "table.py:sort_distributed": DISTRIBUTED,
