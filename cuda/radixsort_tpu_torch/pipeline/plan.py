@@ -16,9 +16,16 @@ position, never by a sentinel key.
     out, count, stats = q.run()
     print(q.explain())
 
-Counts stay 0-d int32 tensors on the device between stages; the plan adds
-no host sync of its own unless ``run(timed=True)``. Every stage's count
-lands in ``stats``.
+Counts are 0-d int32 tensors on the device; every stage's count lands in
+``stats``. On one device ``run`` cuts the table to its valid rows before
+the next stage: after each stage that makes a new count (where, join,
+groupby, groupby_agg, quantiles, distinct) the host reads it once
+(``sync.stage_count``) and every column becomes its ``[:count]`` view, so
+no later sort, gather or mask touches a dropped row. A limit's count is
+the smaller of the table's rows and its k, known without a read; a join's
+``build_count`` cuts the build side the same way (read once when it is a
+tensor). ``TAIL_ROWS`` counts the rows the cuts drop. ``run(timed=True)``
+also waits for the device after every stage.
 
 ``run(mesh=...)`` runs the whole plan on every rank over its block of a
 sharded source table (``Table.shard``; a full table is sharded first):
@@ -53,7 +60,14 @@ from cuda.radixsort_tpu_torch.ops.sort import sort_struct
 from cuda.radixsort_tpu_torch.ops.window import window_table
 from cuda.radixsort_tpu_torch.parallel.shuffle import JOIN_BROADCAST_ROWS
 from cuda.radixsort_tpu_torch.table import Table, _sharded
-from cuda.radixsort_tpu_torch.utils.profiling import traced
+from cuda.radixsort_tpu_torch.utils.profiling import sync_span, traced
+
+# stages whose count is not the one they were given: the one-device run
+# reads it to the host and cuts the table there
+_NEW_COUNT = frozenset(("where", "join", "groupby", "groupby_agg",
+                        "quantiles", "distinct"))
+
+TAIL_ROWS = 0  # rows past the count that the one-device cuts dropped
 
 
 class _Stage(NamedTuple):
@@ -219,10 +233,11 @@ class Query:
     def run(self, *, mesh=None, axis_name: str = "x", timed: bool = False,
             config: config_lib.SortConfig | None = None):
         """Execute the plan on the source table's device. Returns (table,
-        count, stats): rows [0, count) of every column are the result;
-        stats maps "i:op" to the 0-d count after stage i. timed=True also
-        records each stage's wall-clock time as "i:op:ms", waiting for the
-        device after each stage (for profiling: it syncs with the host).
+        count, stats): rows [0, count) of every column are the result, and
+        on one device the table holds no other row; stats maps "i:op" to
+        the 0-d count after stage i. timed=True also records each stage's
+        wall-clock time as "i:op:ms", waiting for the device after each
+        stage (for profiling: it syncs with the host).
 
         Distributed (mesh=..., a DeviceMesh; every rank runs the same
         plan): returns this rank's (table, counts, stats). While the
@@ -236,14 +251,22 @@ class Query:
         t._whole("Query.run without mesh=")
         # torch.full fills on the card; a host number copied there would
         # make the host wait for the stream
-        count = (torch.full((), t.num_rows, dtype=torch.int32,
-                            device=t.device) if self._count is None
-                 else torch.as_tensor(self._count, dtype=torch.int32,
-                                      device=t.device))
+        if self._count is None:
+            count = torch.full((), t.num_rows, dtype=torch.int32,
+                               device=t.device)
+        else:
+            count = torch.as_tensor(self._count, dtype=torch.int32,
+                                    device=t.device)
+            t = _cut(t, _host_count(self._count))
         stats: dict[str, Any] = {}
         for i, st in enumerate(self._stages):
             t0 = time.perf_counter()
+            rows = t.num_rows
             t, count = _EXEC[st.op](t, count, st, config)
+            if st.op in _NEW_COUNT:
+                t = _cut(t, _host_count(count))
+            elif st.op == "limit":  # count == rows before it: no read
+                t = _cut(t, min(rows, st.args[0]))
             if timed:
                 if t.device.type == "cuda":
                     torch.cuda.synchronize(t.device)
@@ -251,6 +274,30 @@ class Query:
                     (time.perf_counter() - t0) * 1e3, 3)
             stats[f"{i}:{st.op}"] = count
         return t, count, stats
+
+
+def _host_count(count) -> int:
+    """A count (an int or a 0-d tensor) as a host int: a tensor on the card
+    is one host sync."""
+    if isinstance(count, torch.Tensor):
+        with sync_span("stage_count"):
+            return int(count)
+    return int(count)
+
+
+def _cut_cols(cols: dict, n: int) -> dict:
+    """Rows [0, n) of every column, as views (no work on the device); the
+    rows past them add to ``TAIL_ROWS``."""
+    global TAIL_ROWS
+    rows = _rows(cols)
+    n = max(0, min(n, rows))
+    TAIL_ROWS += rows - n
+    return cols if n == rows else {k: v[:n] for k, v in cols.items()}
+
+
+def _cut(t: Table, n: int) -> Table:
+    cols = _cut_cols(t._cols, n)
+    return t if cols is t._cols else Table(cols)
 
 
 def _valid_mask(t: Table, count) -> torch.Tensor:
@@ -333,7 +380,10 @@ def _join_impl(cols: dict, count, st: _Stage, build_cols: dict, config):
 
 @traced
 def _exec_join(t: Table, count, st: _Stage, config):
-    out, cnt = _join_impl(_cols(t), count, st, _cols(st.args[0]), config)
+    build, build_count = _cols(st.args[0]), st.args[3]
+    if build_count is not None:
+        build = _cut_cols(build, _host_count(build_count))
+    out, cnt = _join_impl(_cols(t), count, st, build, config)
     return Table(out), cnt
 
 

@@ -1398,6 +1398,7 @@ DISTRIBUTED = "chip_smoke.py phase 6d (distributed) and the gloo tests"
 COUNTER = "a program counter the benchmark reads, no tensor"
 EXCLUDED = {
     "ops/sort.py:STAGED_BYTES": COUNTER,
+    "pipeline/plan.py:TAIL_ROWS": COUNTER,
     "ops/scan.py:ENGINES": CONFIG,
     "ops/filter.py:compaction_config": CONFIG,
     "ops/partition.py:HASH_MUL": CONFIG,
