@@ -47,14 +47,14 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      one-digit 2^28 key plane (one bucket whose lookback carries every
      tile) and three times on one 2^24 input (the same bits); each
      kernel's registers, spills and stack frame as ptxas reports them;
-  3a. paired: partition_stage and limb_histograms on 8-byte columns given
-     as the stride-2 halves of their words (the sort API's 64-bit keys and
-     8-byte payloads) against their plain versions on the same views, bit
-     for bit: the key in either half or a u32 beside them, 8-byte payloads,
-     second launches, n = 1 to 2^24 - 777 and 2^28, histograms of columns 0
-     or 8 bytes past a 16-byte boundary over aligned, unaligned and empty
-     ranges; then config 2's pass and histograms on the column timed beside
-     the same work on contiguous u32 planes;
+  3a. paired: partition_stage and limb_histograms on 8-byte columns (the
+     sort API's 64-bit keys and 8-byte payloads) against their plain
+     versions on the same columns, bit for bit: an 8-byte key's digit in
+     either word, a u32 or a masked 8-byte key beside the column, 8-byte
+     payloads, second launches, n = 1 to 2^24 - 777 and 2^28, histograms of
+     columns 0 or 8 bytes past a 16-byte boundary over aligned, unaligned
+     and empty 64-bit ranges; then config 2's pass and histograms on the
+     column timed beside the same work on contiguous u32 planes;
   4. slice: sort (2^24 u32 keys) and stable sort_pairs (2^28 u64 keys + u32
      payload) and smaller cases against a torch.sort oracle on the card, bit
      for bit, with the kernels' launch counters read around each path; and
@@ -649,22 +649,19 @@ def phase_hist_kernel(gen: torch.Generator) -> int:
     return err
 
 
-def u64_halves(n: int, gen: torch.Generator, offset: int = 0):
-    """(lo, hi): the u32 halves of n random u64 values, as stride-2 views of
-    a column that starts ``offset`` words into its buffer (an odd offset
-    puts the column 8 bytes past a 16-byte boundary)."""
-    from cuda.radixsort_tpu_torch.kernels import histogram as hist
-
-    return hist.halves(rand_bits(n + offset, torch.uint64, gen)[offset:])
+def u64_column(n: int, gen: torch.Generator, offset: int = 0):
+    """n random u64 values as a column that starts ``offset`` words into
+    its buffer (an odd offset puts it 8 bytes past a 16-byte boundary)."""
+    return rand_bits(n + offset, torch.uint64, gen)[offset:]
 
 
 def phase_paired(gen: torch.Generator) -> dict:
-    """The kernels on 8-byte columns given as the stride-2 halves of their
-    words (the sort API's 64-bit keys and 8-byte payloads): partition_stage
-    and limb_histograms on the card against their plain versions on the
-    same views, bit for bit, at ragged sizes and at config 2's 2^28 u64 +
-    u32; then each paired launch timed beside the same work on contiguous
-    u32 planes (config 2's pass and histograms before 8-byte columns)."""
+    """The kernels on 8-byte columns (the sort API's 64-bit keys and 8-byte
+    payloads): partition_stage and limb_histograms on the card against
+    their plain versions on the same columns, bit for bit, at ragged sizes
+    and at config 2's 2^28 u64 + u32; then each paired launch timed beside
+    the same work on contiguous u32 planes (config 2's pass and histograms
+    before 8-byte columns)."""
     from cuda.radixsort_tpu_torch import config as config_lib
     from cuda.radixsort_tpu_torch.kernels import histogram as hist
     from cuda.radixsort_tpu_torch.kernels import stage
@@ -673,88 +670,97 @@ def phase_paired(gen: torch.Generator) -> dict:
     tile = config_lib.preset().tile_elems
     n_stage, n_hist = 0, 0
 
-    def stage_case(planes, width, shift, what):
+    def gbase_of(key, shift, width):
+        counts = torch.bincount(hist.digits(key, shift, width),
+                                minlength=1 << width)
+        return (torch.cumsum(counts, 0) - counts).to(torch.int32)
+
+    def stage_case(cols, width, shift, what):
         nonlocal n_stage
-        h = hist.digit_histograms_plain(planes[0].contiguous(),
-                                        n_stages=32 // width, width=width)
-        gbase = hist.stage_bases(h)[shift // width].contiguous()
-        got = stage.partition_stage(planes, gbase, shift=shift, width=width)
+        gbase = gbase_of(cols[0], shift, width)
+        got = stage.partition_stage(cols, gbase, shift=shift, width=width)
         torch.cuda.synchronize()
-        want = stage.partition_stage_plain(planes, gbase, shift=shift,
+        want = stage.partition_stage_plain(cols, gbase, shift=shift,
                                            width=width)
         for q, (g, w) in enumerate(zip(got, want)):
-            expect(g.stride() == planes[q].stride(),
-                   f"partition_stage {what}: plane {q} changed its layout")
-            e = max_abs_err(g, w)
+            expect(g.dtype == cols[q].dtype and g.is_contiguous(),
+                   f"partition_stage {what}: column {q} changed its layout")
+            e = max_abs_err(g.view(torch.int32), w.view(torch.int32))
             expect(e == 0, f"partition_stage {what} width={width} "
-                   f"shift={shift} plane {q}: max err {e}")
+                   f"shift={shift} column {q}: max err {e}")
         n_stage += 1
 
+    low = ((8, 0), (4, 28), (2, 14))  # digits in the low word
+    high = ((8, 32), (4, 60), (2, 46))  # and in the high word
     for n in (1, 31, tile - 1, tile, tile + 1, tile * 37 + 5, N_KEYS - 777):
-        lo, hi = u64_halves(n, gen, offset=n % 2)
+        col = u64_column(n, gen, offset=n % 2)
         pay = rand_bits(n, torch.uint32, gen)
-        plo, phi = u64_halves(n, gen)
         masked = rand_bits(n, torch.uint32, gen)
-        cases = [([lo, hi, pay], "key lo + hi + u32"),
-                 ([hi, pay, lo], "key hi + u32 + lo"),
-                 ([masked, hi, lo, pay], "masked key + (hi, lo) + u32"),
-                 ([lo, hi, plo, phi], "key lo + hi + 8-byte payload"),
-                 ([hi, lo] + [rand_bits(n, torch.uint32, gen)
-                              for _ in range(8)], "key hi + lo + 8 u32 "
-                  "(a second launch)"),
-                 ([lo, hi] + [q for _ in range(8) for q in u64_halves(n, gen)],
-                  "9 8-byte columns (a second launch)")]
-        for planes, what in cases:
-            for width, shift in ((8, 0), (4, 28), (2, 14)):
-                if len(planes) > 4 and width != 8:
-                    continue
-                stage_case(planes, width, shift, f"n={n} {what}")
-    lo, hi = u64_halves(N_PAIRS, gen)
+        masked64 = u64_column(n, gen).view(torch.int64) & 0x0FFFFFFFFFFFFFF0
+        cases = [([col, pay], low + high, "u64 key + u32"),
+                 ([masked, col, pay], low, "u32 key + u64 + u32"),
+                 ([masked64, col, pay], low + high,
+                  "masked u64 key + u64 + u32"),
+                 ([col, u64_column(n, gen)], low + high,
+                  "u64 key + 8-byte payload"),
+                 ([col] + [rand_bits(n, torch.uint32, gen)
+                           for _ in range(8)], ((8, 0), (8, 32)),
+                  "u64 key + 8 u32 (a second launch)"),
+                 ([col] + [u64_column(n, gen) for _ in range(8)],
+                  ((8, 0), (8, 32)), "9 8-byte columns (a second launch)")]
+        for cols, shifts, what in cases:
+            for width, shift in shifts:
+                stage_case(cols, width, shift, f"n={n} {what}")
+    col = u64_column(N_PAIRS, gen)
     pay = rand_bits(N_PAIRS, torch.uint32, gen)
-    for planes, shift in (([lo, hi, pay], 0), ([hi, lo, pay], 24)):
-        stage_case(planes, 8, shift, "2^28 u64 + u32")
+    for shift in (0, 56):
+        stage_case([col, pay], 8, shift, "2^28 u64 + u32")
     log(f"[paired] partition_stage on 8-byte columns == plain on {n_stage} "
-        f"cases (n = 1 .. 2^24 - 777 and 2^28; key in either half or a u32 "
-        f"beside them, 8-byte payloads, second launches; widths 8/4/2)")
+        f"cases (n = 1 .. 2^24 - 777 and 2^28; an 8-byte key's digit in "
+        f"either word, a u32 or masked u64 key beside the column, 8-byte "
+        f"payloads, second launches; widths 8/4/2)")
 
     step = 8 * hist.THREADS  # rows a block counts per step
-    ranges_all = LIMB_RANGES + ([(0, 16), (32, 32)], [(0, 0), (0, 32)])
+    ranges_all = [(0, 64), (5, 59), (0, 28), (36, 64), (20, 50), (0, 16),
+                  (32, 64), (40, 40), (0, 32)]
     for n in (1, 2, 3, 15, 17, step - 1, step, step + 1, N_KEYS, N_PAIRS):
         for offset in ((0,) if n == N_PAIRS else (0, 1)):
-            lo, hi = u64_halves(n, gen, offset)
-            for ranges in (ranges_all[:2] if n == N_PAIRS else ranges_all):
+            col = u64_column(n, gen, offset)
+            for bits in (ranges_all[:2] if n == N_PAIRS else ranges_all):
                 for width in ((8,) if n >= N_KEYS else (8, 4, 2)):
-                    got = hist.limb_histograms([hi, lo], ranges, width)
+                    got = hist.limb_histograms([col], [bits], width)
                     torch.cuda.synchronize()
-                    want = hist.limb_histograms_plain([hi, lo], ranges, width)
+                    want = hist.limb_histograms_plain([col], [bits], width)
                     e = max_abs_err(got, want)
-                    expect(e == 0, f"limb_histograms halves n={n} offset="
-                           f"{offset} ranges {ranges} width {width}: max err "
-                           f"{e}")
+                    expect(e == 0, f"limb_histograms u64 column n={n} "
+                           f"offset={offset} bits {bits} width {width}: max "
+                           f"err {e}")
                     n_hist += 1
-    log(f"[paired] limb_histograms of a u64 column's halves == plain on "
-        f"{n_hist} cases (n = 1 .. 2^28, columns 0 or 8 bytes past a 16-byte "
-        f"boundary, ranges {ranges_all}, widths 8/4/2)")
-    del lo, hi, pay, planes
+    log(f"[paired] limb_histograms of a u64 column == plain on {n_hist} "
+        f"cases (n = 1 .. 2^28, columns 0 or 8 bytes past a 16-byte "
+        f"boundary, bits {ranges_all}, widths 8/4/2)")
+    del col, pay, cols
     torch.cuda.empty_cache()
 
     # config 2's pass and histograms, 8-byte column against three / two
     # contiguous u32 planes
     t = {}
     col = rand_bits(N_PAIRS, torch.uint64, gen)
-    lo, hi = hist.halves(col)
+    words = col.view(torch.int32).reshape(-1, 2)
     pay = rand_bits(N_PAIRS, torch.uint32, gen)
-    flat = [lo.contiguous(), hi.contiguous(), pay]
+    flat = [words[:, 0].contiguous().view(torch.uint32),
+            words[:, 1].contiguous().view(torch.uint32), pay]
+    del words
     gbase = hist.stage_bases(hist.digit_histograms(
         flat[0], n_stages=4, width=8))[0].contiguous()
-    out = stage.empty_like([lo, hi, pay], [1, 0, None])
+    out = [torch.empty_like(col), torch.empty_like(pay)]
     t["paired"] = device_time_ms(lambda: stage.partition_stage(
-        [lo, hi, pay], gbase, shift=0, width=8, out=out), runs=RUNS)
+        [col, pay], gbase, shift=0, width=8, out=out), runs=RUNS)
     flat_out = [torch.empty_like(p) for p in flat]
     t["planes"] = device_time_ms(lambda: stage.partition_stage(
         flat, gbase, shift=0, width=8, out=flat_out), runs=RUNS)
     t["hist_paired"] = device_time_ms(lambda: hist.limb_histograms(
-        [hi, lo], [(0, 32), (0, 32)], 8), runs=RUNS)
+        [col], [(0, 64)], 8), runs=RUNS)
     t["hist_planes"] = device_time_ms(lambda: hist.limb_histograms(
         flat[1::-1], [(0, 32), (0, 32)], 8), runs=RUNS)
     bound = bound_ms(8 * N_PAIRS * 3)[0]
@@ -762,10 +768,10 @@ def phase_paired(gen: torch.Generator) -> dict:
     log(f"[paired] partition_stage 2^28 width 8, u64 key column + u32: "
         f"{t['paired']:.4f} ms; as 3 u32 planes {t['planes']:.4f} ms "
         f"(bound {bound:.3f} ms)")
-    log(f"[paired] limb_histograms 2^28 width 8, a u64 column's halves: "
+    log(f"[paired] limb_histograms 2^28 width 8, a u64 column: "
         f"{t['hist_paired']:.4f} ms; as 2 u32 limbs {t['hist_planes']:.4f} "
         f"ms (bound {hbound:.3f} ms)")
-    del col, lo, hi, pay, flat, out, flat_out
+    del col, pay, flat, out, flat_out
     torch.cuda.empty_cache()
     return t
 

@@ -28,15 +28,10 @@ LAUNCHES = 0  # kernel launches made by digit_histograms and limb_histograms
 _SMS: dict[int, int] = {}  # device index -> streaming multiprocessors
 
 
-def _check_keys(keys: torch.Tensor) -> None:
+def _check(keys: torch.Tensor, n_stages: int, width: int) -> None:
     if keys.dtype != torch.uint32:
         raise TypeError(f"keys must be torch.uint32; got {keys.dtype}")
-    if not keys.is_contiguous():
-        raise ValueError("keys must be contiguous")
-
-
-def _check(keys: torch.Tensor, n_stages: int, width: int) -> None:
-    _check_keys(keys)
+    check_column(keys)
     if width not in WIDTHS:
         raise ValueError(f"width must be one of {WIDTHS}; got {width}")
     if not (1 <= n_stages and n_stages * width <= 32):
@@ -44,85 +39,42 @@ def _check(keys: torch.Tensor, n_stages: int, width: int) -> None:
                          f"got n_stages={n_stages}, width={width}")
 
 
-# ---------------------------------------------------------------------------
-# 8-byte columns as two u32 planes
-# ---------------------------------------------------------------------------
-# A 64-bit key or an 8-byte payload enters the kernels as its two u32 halves,
-# stride-2 views of the column itself (no copy). Both kernels pair the halves
-# again and read and write each row's 8 bytes as one word.
+def check_column(t: torch.Tensor) -> None:
+    """A key or payload column of the LSD loop: contiguous, torch.uint32 or
+    8 bytes wide (any 8-byte dtype; its words order as u64)."""
+    if t.dtype != torch.uint32 and t.element_size() != 8:
+        raise TypeError(f"a column must be torch.uint32 or 8 bytes wide; "
+                        f"got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError("a column must be contiguous")
 
 
-def halves(column: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(lo, hi): the u32 halves of a contiguous 1-D 8-byte column, as
-    stride-2 views of its words (little-endian: lo is the low word)."""
-    words = column.view(torch.int32).reshape(-1, 2)
-    return words[:, 0].view(torch.uint32), words[:, 1].view(torch.uint32)
+def signed_words(column: torch.Tensor) -> torch.Tensor:
+    """The bits of a u32 or 8-byte column as an int32 or int64 view, which
+    torch's operators all take."""
+    return column.view(torch.int64 if column.element_size() == 8
+                       else torch.int32)
 
 
-def is_half(t: torch.Tensor) -> bool:
-    """A non-empty 1-D view with element stride 2: one half of an 8-byte
-    column."""
-    return t.dim() == 1 and t.stride() == (2,) and t.numel() > 0
-
-
-def is_pair(lo: torch.Tensor, hi: torch.Tensor) -> bool:
-    """True when lo and hi are the low and high halves of one 8-byte column
-    (8-byte aligned), as :func:`halves` gives them."""
-    return (is_half(lo) and is_half(hi) and lo.dtype == hi.dtype == torch.uint32
-            and lo.shape == hi.shape and lo.device == hi.device
-            and lo.data_ptr() % 8 == 0 and hi.data_ptr() == lo.data_ptr() + 4)
-
-
-def column_of(lo: torch.Tensor) -> torch.Tensor:
-    """The 1-D int64 column whose low halves ``lo`` views (``is_pair``
-    with its high half): the same memory, no copy."""
-    n = lo.shape[0]
-    return (lo.view(torch.int32).as_strided((n, 2), (2, 1))
-            .view(torch.int64).reshape(n))
-
-
-def pair_planes(planes, out=None) -> list:
-    """Each plane's partner: None for a contiguous u32 plane, else the index
-    of the other half of its 8-byte column (the nearest one where a column
-    is given twice; with ``out``, one whose output is the other half of an
-    8-byte column too, in the same order). Raises ValueError for a plane
-    that is neither contiguous nor such a half."""
-    def pairs(i, j):
-        if is_pair(planes[i], planes[j]):
-            return out is None or is_pair(out[i], out[j])
-        return is_pair(planes[j], planes[i]) and (
-            out is None or is_pair(out[j], out[i]))
-
-    partner = [None] * len(planes)
-    for i, p in enumerate(planes):
-        if partner[i] is not None:
-            continue
-        j = None
-        if is_half(p):
-            near = sorted(range(len(planes)), key=lambda j: (abs(j - i), j))
-            j = next((j for j in near if j != i and partner[j] is None
-                      and pairs(i, j)), None)
-        if j is not None:
-            partner[i], partner[j] = j, i
-        elif not p.is_contiguous():  # (a single row is, at any stride)
-            raise ValueError("a plane must be contiguous or one stride-2 "
-                             "half of an 8-byte column whose other half is "
-                             "also given (and so must its output)")
-    return partner
+def _values(column: torch.Tensor) -> torch.Tensor:
+    """The bits of a u32 or 8-byte column as int64 (plain torch: CPU torch
+    does not shift unsigned tensors)."""
+    w = signed_words(column).reshape(-1)
+    return w if w.dtype == torch.int64 else w.to(torch.int64) & 0xFFFFFFFF
 
 
 def digits(keys: torch.Tensor, shift: int, width: int) -> torch.Tensor:
-    """(key >> shift) & (2^width - 1) of u32 keys, as int64 (plain torch:
-    the u32 bits are widened to int64, since CPU torch does not shift u32)."""
-    k = keys.reshape(-1).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    return (k >> shift) & ((1 << width) - 1)
+    """(key >> shift) & (2^width - 1) of a u32 or 8-byte key column, as
+    int64."""
+    return (_values(keys) >> shift) & ((1 << width) - 1)
 
 
 def _stage_counts(keys: torch.Tensor, n_stages: int, width: int,
-                  mask: int = 0xFFFFFFFF) -> torch.Tensor:
-    """torch.bincount of each stage's digit of keys & mask."""
+                  mask: int = 0xFFFFFFFF, base: int = 0) -> torch.Tensor:
+    """torch.bincount of each stage's digit of the u32 word at bit ``base``
+    of the keys, & mask."""
     nb = 1 << width
-    k = keys.reshape(-1).view(torch.int32).to(torch.int64) & mask
+    k = (_values(keys) >> base) & mask
     rows = [torch.bincount((k >> (width * s)) & (nb - 1), minlength=nb)
             for s in range(n_stages)]
     return torch.stack(rows).to(torch.int32)
@@ -136,10 +88,10 @@ def digit_histograms_plain(keys: torch.Tensor, *, n_stages: int = 8,
 
 
 def limb_stages(limb_bits, width: int) -> list[tuple[int, int]]:
-    """(mask, n_stages) of each limb's histogram, as the JAX pipeline takes
-    it: a width-aligned range [begin, end) counts the limb as it is, any
-    other range the limb & bits [begin, end); ceil(end / width) stages, none
-    for an empty range."""
+    """(mask, n_stages) of each u32 word's histogram, as the JAX pipeline
+    takes it: a width-aligned range [begin, end) counts the word as it is,
+    any other range the word & bits [begin, end); ceil(end / width)
+    stages, none for an empty range."""
     out = []
     for begin, end in limb_bits:
         if begin >= end:
@@ -152,36 +104,62 @@ def limb_stages(limb_bits, width: int) -> list[tuple[int, int]]:
     return out
 
 
-def _check_limbs(limbs, limb_bits, width: int) -> list:
-    """Check the limb columns; return each one's partner
-    (:func:`pair_planes`): a stride-2 half's other half must be the limb
-    beside it."""
+def word_ranges(column: torch.Tensor, begin: int,
+                end: int) -> list[tuple[int, int]]:
+    """Bits [begin, end) of a column as the ranges of its u32 words, high
+    word first: one for a u32 column, two for an 8-byte one."""
+    if column.element_size() == 4:
+        return [(begin, end)]
+    return [(max(begin, 32) - 32, max(end, 32) - 32),
+            (min(begin, 32), min(end, 32))]
+
+
+def _entries(limbs, limb_bits, width: int) -> list[tuple[int, int, int, int]]:
+    """The kernel's words, limb by limb: (limb, half, mask, n_stages), half
+    -1 for a u32 column with stages, 1 and 0 for the high and low words of
+    an 8-byte column, which go in together where either has stages (the
+    kernel reads the column once)."""
+    out = []
+    for k, (t, bits) in enumerate(zip(limbs, limb_bits)):
+        words = limb_stages(word_ranges(t, *bits), width)
+        if len(words) == 2 and (words[0][1] or words[1][1]):
+            out += [(k, 1, *words[0]), (k, 0, *words[1])]
+        elif len(words) == 1 and words[0][1]:
+            out.append((k, -1, *words[0]))
+    return out
+
+
+def stage_rows(limbs, limb_bits, width: int) -> dict[tuple[int, int], int]:
+    """{(limb k, shift): its row in :func:`limb_histograms`' result}: the
+    histogram of bits [shift, shift + width) of limb k."""
+    rows, row = {}, 0
+    for k, half, _, st in _entries(limbs, limb_bits, width):
+        for s in range(st):
+            rows[k, 32 * max(half, 0) + width * s] = row + s
+        row += st
+    return rows
+
+
+def _check_limbs(limbs, limb_bits, width: int) -> None:
     if not limbs or len(limbs) != len(limb_bits):
         raise ValueError("need one (begin, end) bit range per limb column")
     if width not in WIDTHS:
         raise ValueError(f"width must be one of {WIDTHS}; got {width}")
-    for t in limbs:
-        if t.dtype != torch.uint32:
-            raise TypeError(f"keys must be torch.uint32; got {t.dtype}")
+    for t, (begin, end) in zip(limbs, limb_bits):
+        check_column(t)
         if t.shape != limbs[0].shape or t.device != limbs[0].device:
             raise ValueError("limb columns must share one shape and device")
-    for begin, end in limb_bits:
-        if not 0 <= begin <= 32 or not 0 <= end <= 32:
-            raise ValueError(f"bit range ({begin}, {end}) outside [0, 32]")
-    partner = pair_planes(limbs)
-    if any(j is not None and abs(i - j) != 1 for i, j in enumerate(partner)):
-        raise ValueError("the halves of an 8-byte column must be "
-                         "neighbouring limbs")
-    return partner
+        bits = 8 * t.element_size()
+        if not 0 <= begin <= bits or not 0 <= end <= bits:
+            raise ValueError(f"bit range ({begin}, {end}) outside [0, {bits}]")
 
 
 def limb_histograms_plain(limbs, limb_bits, width: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`limb_histograms`: the plain
-    histogram of each masked limb, stacked."""
+    histogram of each masked word, stacked."""
     _check_limbs(limbs, limb_bits, width)
-    rows = [_stage_counts(t, stages, width, mask)
-            for t, (mask, stages) in zip(limbs, limb_stages(limb_bits, width))
-            if stages]
+    rows = [_stage_counts(limbs[k], st, width, mask, 32 * max(half, 0))
+            for k, half, mask, st in _entries(limbs, limb_bits, width) if st]
     if not rows:
         return torch.zeros((0, 1 << width), dtype=torch.int32,
                            device=limbs[0].device)
@@ -196,12 +174,12 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def _launch(cols, masks, stages, width: int, half=None) -> torch.Tensor:
-    """The kernel over key columns of one length, each with its mask, stage
-    count (>= 1, or >= 0 for a half) and half (-1, or 0 / 1 for the two
-    neighbouring halves of an 8-byte column; default all -1): (sum(stages),
-    2^width) int32, one launch per HIST_MAX_LIMBS columns (the halves of a
-    column in one launch). A column counts 256 bins for each byte its
-    stages cover."""
+    """The kernel over words of columns of one length, each with its mask,
+    stage count (>= 1, or >= 0 for a word of an 8-byte column) and half
+    (-1 for a u32 column, or 1 then 0 for the high and low words of an
+    8-byte column; default all -1): (sum(stages), 2^width) int32, one
+    launch per HIST_MAX_LIMBS words (the two words of a column in one
+    launch). A word counts 256 bins for each byte its stages cover."""
     global LAUNCHES
     lib = build.library()
     dev, n, nb = cols[0].device, cols[0].numel(), 1 << width
@@ -209,17 +187,14 @@ def _launch(cols, masks, stages, width: int, half=None) -> torch.Tensor:
     out = torch.empty((sum(stages), nb), dtype=torch.int32, device=dev)
     if n == 0:
         return out.zero_()
-    starts = []  # column i begins a pair of halves
-    for h in half:
-        starts.append(h >= 0 and not (starts and starts[-1]))
     sms = _sm_count(dev)
     row, c0 = 0, 0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         while c0 < len(cols):
             c1 = min(c0 + config_lib.HIST_MAX_LIMBS, len(cols))
-            if c1 < len(cols) and starts[c1 - 1]:
-                c1 -= 1  # keep the halves of a column in one launch
+            if c1 < len(cols) and half[c1 - 1] == 1:
+                c1 -= 1  # keep the words of a column in one launch
             part = slice(c0, c1)
             n_rows = sum(stages[part])
             byte_bins = sum(-(-st * width // 8) * 256 for st in stages[part])
@@ -231,8 +206,10 @@ def _launch(cols, masks, stages, width: int, half=None) -> torch.Tensor:
             # zero
             scratch = build.stream_scratch("histogram", dev, stream,
                                            1 + byte_bins, torch.int32)
-            ptrs = build.ptr_array(cols[part])
-            k = len(ptrs)
+            k = c1 - c0
+            ptrs = (ctypes.c_void_p * k)(*[  # the high word 4 bytes in
+                c.data_ptr() + 4 * (h == 1)
+                for c, h in zip(cols[part], half[part])])
             err = lib.rs_limb_histograms(
                 ctypes.cast(ptrs, ctypes.c_void_p),
                 ctypes.cast((ctypes.c_uint32 * k)(*masks[part]),
@@ -249,35 +226,29 @@ def _launch(cols, masks, stages, width: int, half=None) -> torch.Tensor:
 
 
 def limb_histograms(limbs, limb_bits, width: int) -> torch.Tensor:
-    """Every stage histogram of the u32 limb columns of one sort, from one
-    read of the keys (one launch for up to HIST_MAX_LIMBS columns).
+    """Every stage histogram of the key columns of one sort, from one read
+    of the keys (one launch for up to HIST_MAX_LIMBS words).
 
-    limbs: (N,) torch.uint32 columns, any offsets, each contiguous or one
-    stride-2 half of an 8-byte column whose other half is the limb beside
-    it (:func:`halves`: a 64-bit key's limbs, read once as 8-byte words);
-    limb_bits[k] = (begin, end), the bits of limb k that take part in the
-    order. Returns (sum of n_stages, 2^width) int32: limb by limb,
-    ceil(end / width) rows each (none for begin >= end), row s the digit
-    counts of stage s of the limb masked as :func:`limb_stages` says. The
-    counts are u32 bits (a digit of 2^31 keys reads negative as int32;
-    :func:`counts64`)."""
+    limbs: (N,) contiguous columns, torch.uint32 or 8 bytes wide (read once
+    as 8-byte words), any offsets; limb_bits[k] = (begin, end), the bits of
+    limb k (of its 32 or 64) that take part in the order. Returns (rows,
+    2^width) int32: limb by limb, an 8-byte column as its high word then
+    its low word with its part of the range; ceil(end / width) rows for a
+    word's range [begin, end) (none for an empty one), row s the digit
+    counts of stage s of the word masked as :func:`limb_stages` says
+    (:func:`stage_rows` finds a stage's row). The counts are u32 bits (a
+    digit of 2^31 keys reads negative as int32; :func:`counts64`)."""
     if limbs and limbs[0].device.type == "cpu":
         return limb_histograms_plain(limbs, limb_bits, width)
-    partner = _check_limbs(limbs, limb_bits, width)
+    _check_limbs(limbs, limb_bits, width)
     if limbs[0].device.type != "cuda":
         raise ValueError(f"unsupported device {limbs[0].device}")
-    ranges = limb_stages(limb_bits, width)
-    picked = []  # (column, mask, stages, half): -1, or 0 / 1 low / high
-    for t, (m, st), j in zip(limbs, ranges, partner):
-        if j is None and st:
-            picked.append((t, m, st, -1))
-        elif j is not None and (st or ranges[j][1]):  # halves go together
-            picked.append((t, m, st, int(limbs[j].data_ptr() < t.data_ptr())))
-    if not picked:
+    entries = _entries(limbs, limb_bits, width)
+    if not entries:
         return torch.zeros((0, 1 << width), dtype=torch.int32,
                            device=limbs[0].device)
-    cols, masks, stages, half = map(list, zip(*picked))
-    return _launch(cols, masks, stages, width, half)
+    ks, half, masks, stages = map(list, zip(*entries))
+    return _launch([limbs[k] for k in ks], masks, stages, width, half)
 
 
 def digit_histograms(keys: torch.Tensor, *, n_stages: int = 8,
@@ -303,5 +274,11 @@ def counts64(hist: torch.Tensor) -> torch.Tensor:
 def stage_bases(hist: torch.Tensor) -> torch.Tensor:
     """(n_stages, 2^width) histograms -> exclusive bucket bases per stage,
     as int32 holding u32 bits (a base can be 2^31)."""
+    return bases_and_maxima(hist)[0]
+
+
+def bases_and_maxima(hist: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(:func:`stage_bases`, each stage's largest count as int64) from one
+    widening of the counts."""
     h = counts64(hist)
-    return (torch.cumsum(h, dim=1) - h).to(torch.int32)
+    return (torch.cumsum(h, dim=1) - h).to(torch.int32), h.max(dim=1).values

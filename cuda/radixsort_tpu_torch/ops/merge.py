@@ -25,7 +25,8 @@ from cuda.radixsort_tpu_torch import config as config_lib
 from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.kernels import bitonic as kbitonic
 from cuda.radixsort_tpu_torch.ops.sort import (_MAX_U32, _flatten,
-                                               _key_to_limbs, _limbs_to_key,
+                                               _join_u32, _key_to_limbs,
+                                               _limbs_to_key, _u32_planes,
                                                _unflatten, apply_permutation)
 from cuda.radixsort_tpu_torch.utils.profiling import traced
 
@@ -92,8 +93,9 @@ def merge_sorted(a: torch.Tensor, b: torch.Tensor, *,
     if cfg.engine == "bitonic":
         a_limbs, _ = _key_to_limbs(a, descending, None, None)
         b_limbs, _ = _key_to_limbs(b, descending, None, None)
-        out = _network_merge(a_limbs, b_limbs, len(a_limbs))
-        return _limbs_to_key(out, a.dtype, descending)
+        a_planes = _u32_planes(a_limbs)
+        out = _network_merge(a_planes, _u32_planes(b_limbs), len(a_planes))
+        return _limbs_to_key(_join_u32(out, a_limbs), a.dtype, descending)
     abits = twiddle.twiddle_in(a, descending=descending)
     bbits = twiddle.twiddle_in(b, descending=descending)
     ra, rb = _merge_ranks(abits, bbits)
@@ -129,21 +131,22 @@ def merge_sorted_pairs(a_keys: torch.Tensor, a_values, b_keys: torch.Tensor,
         keys, leaves = (b_keys, b_leaves) if na == 0 else (a_keys, a_leaves)
         return keys.clone(), _unflatten(spec, iter([v.clone() for v in leaves]))
 
-    a_limbs, _ = _key_to_limbs(a_keys, descending, None, None)
-    b_limbs, _ = _key_to_limbs(b_keys, descending, None, None)
     four_byte = all(p.dtype.itemsize == 4 for p in a_leaves + b_leaves)
-    if (cfg.engine == "bitonic" and four_byte
-            and len(a_limbs) + 1 + len(a_leaves) <= 4):
+    k = -(-twiddle.bit_width(a_keys.dtype) // 32)  # the keys' u32 planes
+    if cfg.engine == "bitonic" and four_byte and k + 1 + len(a_leaves) <= 4:
+        a_limbs, _ = _key_to_limbs(a_keys, descending, None, None)
+        b_limbs, _ = _key_to_limbs(b_keys, descending, None, None)
         dev = a_keys.device
         ia = torch.arange(na, dtype=torch.int32, device=dev)
         ib = torch.arange(na, na + nb, dtype=torch.int32, device=dev)
         au = [p.contiguous().view(torch.uint32) for p in a_leaves]
         bu = [p.contiguous().view(torch.uint32) for p in b_leaves]
-        out = _network_merge(a_limbs + [ia.view(torch.uint32)] + au,
-                             b_limbs + [ib.view(torch.uint32)] + bu,
-                             len(a_limbs) + 1)
-        k = len(a_limbs)
-        keys = _limbs_to_key(out[:k], a_keys.dtype, descending)
+        out = _network_merge(_u32_planes(a_limbs) + [ia.view(torch.uint32)]
+                             + au,
+                             _u32_planes(b_limbs) + [ib.view(torch.uint32)]
+                             + bu, k + 1)
+        keys = _limbs_to_key(_join_u32(out[:k], a_limbs), a_keys.dtype,
+                             descending)
         leaves = [o.view(p.dtype) for o, p in zip(out[k + 1:], a_leaves)]
         return keys, _unflatten(spec, iter(leaves))
 

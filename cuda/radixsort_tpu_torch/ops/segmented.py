@@ -7,7 +7,7 @@ segment sizes:
 
 * 'bitonic', keys only, keys of up to 32 bits, full range: a 2-plane
   (segment, key) network sort;
-* otherwise the (segment, key limbs...) sort of ``ops/sort.py``: the
+* otherwise the (segment, key) sort of ``ops/sort.py``: the
   network's pair route where it serves the shape, the stable radix path
   elsewhere. The radix engine declares only the bits a segment id needs,
   so fewer digit passes run.
@@ -75,12 +75,10 @@ def segmented_sort(keys: torch.Tensor, offsets: torch.Tensor, values=None, *,
     seg_bits = max(1, max(nseg - 1, 1).bit_length())
     seg = _segment_ids(offsets, n)
 
-    radix = cfg.engine == "radix"
-    limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit,
-                                     radix)
+    limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit)
     full = full_range(keys.dtype, begin_bit, end_bit)
-    if (cfg.engine == "bitonic" and values is None and len(limbs) == 1
-            and full):
+    if (cfg.engine == "bitonic" and values is None
+            and limbs[0].element_size() == 4 and full):
         # (segment, key) as a 2-plane total order of bit-identical ties
         out = _bitonic_planes([seg, limbs[0]], n, 2, cfg)
         return _limbs_to_key(out[1:], keys.dtype, descending)
@@ -90,7 +88,7 @@ def segmented_sort(keys: torch.Tensor, offsets: torch.Tensor, values=None, *,
     seg_range = (0, 32) if cfg.engine == "bitonic" and full else (0, seg_bits)
     limbs, out = _sort_limbs([seg] + limbs, [seg_range] + limb_bits, leaves,
                              cfg)
-    keys_out = _limbs_to_key(limbs[1:], keys.dtype, descending, radix)
+    keys_out = _limbs_to_key(limbs[1:], keys.dtype, descending)
     if values is None:
         return keys_out
     return keys_out, _unflatten(spec, iter(out))

@@ -2,14 +2,14 @@
 
 Counterpart of ``cuda/radixsort_tpu/ops/sort.py`` for its radix engine
 (``_sort_limbs``' Pallas branch) and its bitonic engine: keys are twiddled
-into unsigned bits and split into u32 limbs (64-bit keys: hi, lo).
+into unsigned bits, one key column each (u32, or 8 bytes for 64-bit keys;
+narrower keys widen to u32), and payloads become u32 or 8-byte columns.
 
-* engine 'radix' (and 'auto'): the limbs sort least significant first
-  through the histogram and stage kernels, payloads riding along as u32
-  planes. Always stable, so ``stable=False`` gives the stable result. An
-  8-byte key or payload column goes in as the two halves of its own words
-  and comes out as the LSD loop's own column (no split, no join, no copy of
-  unsigned keys); :data:`STAGED_BYTES` counts the copies this route still
+* engine 'radix' (and 'auto'): the key columns sort least significant
+  first through the histogram and stage kernels, payloads riding along.
+  Always stable, so ``stable=False`` gives the stable result. An 8-byte
+  column goes in and comes out as one column (no split, no join, no copy
+  of unsigned keys); :data:`STAGED_BYTES` counts the copies the sort API
   makes.
 * engine 'bitonic': full-range keys-only sorts, argsorts of keys up to 32
   bits, and pair sorts of at most 4 u32 planes with payloads of at most 4
@@ -17,10 +17,15 @@ into unsigned bits and split into u32 limbs (64-bit keys: hi, lo).
   JAX engine routes them under ``interpret=True``; the rest (bit ranges,
   8-byte payloads, more planes, keys-only struct sorts) takes the stable
   radix path, which gives the stable result the JAX engine falls back to.
-* engine 'reference': the same LSD passes in plain torch with CUB's tile
-  and spine layout (:func:`plan_passes`, :func:`counting_pass_reference`,
-  :func:`apply_permutation`), on the tensors' own device: the oracle the
-  JAX package calls its reference engine. It runs only where it is named.
+* engine 'reference': the same LSD passes on the same columns in plain
+  torch with CUB's tile and spine layout (:func:`plan_passes`,
+  :func:`counting_pass_reference`, :func:`apply_permutation`), on the
+  tensors' own device: the oracle the JAX package calls its reference
+  engine. It runs only where it is named.
+
+The network alone sorts u32 planes: it splits an 8-byte key into its (hi,
+lo) words on entry and joins them on exit (:func:`_u32_planes`,
+:func:`_join_u32`).
 
 :func:`sort_large` partitions 32-bit keys by their top bits on the kernels
 and sorts the buckets in batches of bounded size.
@@ -48,15 +53,14 @@ _DEVICE_MAX_N = 1 << 31
 
 _FLOATS = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 
-# Bytes read plus bytes written by the torch copies that the radix route
-# makes of a key or payload column on its way into or out of
-# kernels/pipeline.py::sort_limbs: a contiguous copy, a twiddle each way and
-# a descending complement (signed and float keys; torch runs the float
-# twiddle as several elementwise ops, counted as one), a widen or narrow of
-# columns under 4 bytes, and the split, join and clone of 8-byte columns
-# where the route made them. Each counts its least traffic: the column read
-# once and written once. The masked-limb copy inside sort_limbs belongs to
-# the LSD loop and is not counted. The benchmark's
+# Bytes read plus bytes written by the torch copies that the sort API makes
+# of a key or payload column on its way into or out of an engine's passes:
+# a contiguous copy, a twiddle each way and a descending complement (signed
+# and float keys; torch runs the float twiddle as several elementwise ops,
+# counted as one), a widen or narrow of columns under 4 bytes, and the
+# network's split and join of 8-byte keys. Each counts its least traffic:
+# the column read once and written once. The masked-key copy inside
+# sort_limbs belongs to the LSD loop and is not counted. The benchmark's
 # sort.staged_bytes_per_row reads its delta.
 STAGED_BYTES = 0
 
@@ -108,81 +112,60 @@ def _widen_u32(p: torch.Tensor) -> torch.Tensor:
     return p.to(torch.int32).view(torch.uint32)
 
 
-def _narrow_u32(o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Inverse of :func:`_widen_u32`."""
-    o = o.view(torch.int32)
-    if dtype in _FLOATS or dtype == torch.uint16:
-        return o.to(torch.int16).view(dtype)
-    return o.to(dtype)
-
-
-def _to_planes(p: torch.Tensor, radix: bool = False):
-    """A 1-D payload column -> (u32 planes, how to rebuild it). ``radix``:
-    for the LSD loop, which takes an 8-byte column as the two halves of
-    its words (no copy); the copies made are counted in STAGED_BYTES."""
+def _to_column(p: torch.Tensor):
+    """A 1-D payload column -> (its column for the engines, u32 or 8 bytes
+    wide, and how to rebuild it); the copies made are counted in
+    STAGED_BYTES."""
     n, size = p.shape[0], p.dtype.itemsize
-    if radix and not p.is_contiguous():
+    if not p.is_contiguous():
         _staged(2 * n * size)
     p = p.contiguous()
     if size == 4:
-        return [p.view(torch.uint32)], ("view", p.dtype)
-    if size < 4:
-        if radix:
-            _staged(n * (size + 4))
-        return [_widen_u32(p)], ("narrow", p.dtype)
-    if size == 8 and radix:
-        return list(hist_lib.halves(p)), ("pair", p.dtype)
+        return p.view(torch.uint32), ("view", p.dtype)
     if size == 8:
-        lohi = p.view(torch.int32).reshape(-1, 2)
-        return ([lohi[:, 0].contiguous().view(torch.uint32),
-                 lohi[:, 1].contiguous().view(torch.uint32)], ("pair", p.dtype))
+        return p, ("view", p.dtype)
+    if size < 4:
+        _staged(n * (size + 4))
+        return _widen_u32(p), ("narrow", p.dtype)
     raise TypeError(f"unsupported payload dtype {p.dtype}")
 
 
-def _from_planes(planes, spec, radix: bool = False) -> torch.Tensor:
+def _from_column(col: torch.Tensor, spec) -> torch.Tensor:
+    """Inverse of :func:`_to_column` (a widened column narrows back)."""
     how, dtype = spec
     if how == "view":
-        return planes[0].view(dtype)
-    if how == "narrow":
-        if radix:
-            _staged(planes[0].shape[0] * (4 + dtype.itemsize))
-        return _narrow_u32(planes[0], dtype)
-    if radix and hist_lib.is_pair(*planes):  # the LSD loop's own column
-        return hist_lib.column_of(planes[0]).view(dtype)
-    if radix:
-        _staged(16 * planes[0].shape[0])
-    lo, hi = (q.view(torch.int32) for q in planes)
-    return torch.stack([lo, hi], dim=1).view(dtype).reshape(-1)
+        return col.view(dtype)
+    _staged(col.shape[0] * (4 + dtype.itemsize))
+    col = col.view(torch.int32)
+    if dtype in _FLOATS or dtype == torch.uint16:
+        return col.to(torch.int16).view(dtype)
+    return col.to(dtype)
 
 
 def _sort_limbs(limbs, limb_bits, payloads, cfg, stable: bool = True,
                 unique_leading_payload: bool = False):
-    """Sort u32 limb columns (most significant first, limb_bits[k] the bits
-    of limb k that order) with payload columns of any supported dtype
+    """Sort key columns (most significant first, limb_bits[k] the bits of
+    column k that order) with payload columns of any supported dtype
     riding along. The network takes the pair sorts it can serve
     (:func:`_network_pairs`); the reference engine runs its plain passes
     (:func:`_sort_limbs_reference`); everything else is the stable LSD
-    sort on the kernels."""
-    if cfg.engine == "reference":
-        return _sort_limbs_reference(limbs, limb_bits, payloads, cfg)
-    if cfg.engine == "bitonic":
-        out = _network_pairs(limbs, limb_bits, payloads, cfg, stable,
-                             unique_leading_payload)
-        if out is not None:
-            return out
-    radix = cfg.engine == "radix"
-    planes, specs, counts = [], [], []
+    sort on the kernels. Returns fresh key columns, which nothing else
+    holds, and the payloads."""
+    cols, specs = [], []
     for p in payloads:
-        ps, spec = _to_planes(p, radix)
-        planes += ps
+        col, spec = _to_column(p)
+        cols.append(col)
         specs.append(spec)
-        counts.append(len(ps))
-    out_limbs, out_planes = kpipe.sort_limbs(limbs, limb_bits, planes, cfg)
-    out, i = [], 0
-    for spec, c in zip(specs, counts):
-        out.append(_from_planes(out_planes[i:i + c], spec, radix))
-        i += c
-    return out_limbs, out
+    out = None
+    if cfg.engine == "bitonic":
+        tag = (unique_leading_payload and bool(payloads)
+               and payloads[0].dtype == torch.uint32)
+        out = _network_pairs(limbs, limb_bits, cols, cfg, stable, tag)
+    if out is None:
+        lsd = (_sort_limbs_reference if cfg.engine == "reference"
+               else kpipe.sort_limbs)
+        out = lsd(limbs, limb_bits, cols, cfg)
+    return out[0], [_from_column(c, spec) for c, spec in zip(out[1], specs)]
 
 
 def apply_permutation(dest: torch.Tensor, arrays):
@@ -281,21 +264,25 @@ def counting_pass_reference(digits: torch.Tensor, num_bins: int,
 
 
 def _sort_limbs_reference(limbs, limb_bits, payloads, cfg):
-    """The reference engine's LSD sort: the limbs padded with 0xFFFFFFFF
-    to whole tiles (the pads sort last and stay there), then per limb,
-    least significant first, one counting pass per :func:`plan_passes`
-    pass, every limb and payload scattered by its destinations."""
+    """The reference engine's LSD sort of the columns
+    :func:`kpipe.sort_limbs` takes: the key columns padded with all-ones
+    rows to whole tiles (the pads sort last and stay there; without pads,
+    copied), then per column, least significant first, one counting pass
+    per :func:`plan_passes` pass over its bit range, every column scattered
+    by its destinations."""
     n = limbs[0].shape[0]
     tile = cfg.tile_elems
     pad = -(-max(n, 1) // tile) * tile - n
     dev = limbs[0].device
     if pad:
-        ones = torch.full((pad,), -1, dtype=torch.int32,
-                          device=dev).view(torch.uint32)
-        limbs = [twiddle.cat([c, ones]) for c in limbs]
+        limbs = [twiddle.cat([c, torch.full(
+            (pad,), -1, dtype=twiddle.signed_dtype(c.dtype),
+            device=dev).view(c.dtype)]) for c in limbs]
         payloads = [twiddle.cat([p, torch.zeros(pad, dtype=p.dtype,
                                                 device=dev)])
                     for p in payloads]
+    else:
+        limbs = [c.clone() for c in limbs]
     for k in range(len(limbs) - 1, -1, -1):
         begin, end = limb_bits[k]
         for shift, width in plan_passes(begin, end, cfg.radix_bits):
@@ -384,53 +371,79 @@ def _network_sort_into(buf, planes, n: int, logn: int, n_cmp: int, cfg):
 
 
 def _network_pairs(limbs, limb_bits, payloads, cfg, stable: bool,
-                   unique_leading_payload: bool):
-    """The network route of a pair sort, or None where the JAX engine does
-    not take it: a bit range, a payload wider than 4 bytes, no payload or
-    more than 4 planes.
+                   tag: bool):
+    """The network route of a pair sort of key and payload columns
+    (:func:`_to_column`), or None where the JAX engine does not take it: a
+    bit range, a payload wider than 4 bytes, no payload or more than 4
+    planes.
 
-    Planes: the limbs, then (stable) an index plane, then the payloads
-    widened to u32. The comparands are the limbs and the index, so the
-    order is total and the sort stable. With ``unique_leading_payload`` a
-    u32 first payload is the tie-break comparand instead of an index
-    plane. Unstable: no index plane; at a power of two the tie-safe rule
-    (n_cmp < 0), else every plane compares, since the 0xFFFFFFFF pads would
-    tie with real max-key rows and tie-safe cannot order them past the
-    pads (ties are then bit-identical rows)."""
-    full = all(b == 0 and e == 32 for b, e in limb_bits)
-    four_byte = all(p.dtype.itemsize <= 4 for p in payloads)
-    tag = (unique_leading_payload and bool(payloads)
-           and payloads[0].dtype == torch.uint32)
-    n_total = len(limbs) + (1 if stable and not tag else 0) + len(payloads)
+    Planes: the keys' u32 planes, then (stable) an index plane, then the
+    payloads. The comparands are the keys and the index, so the order is
+    total and the sort stable. With ``tag`` (a unique u32 first payload,
+    ``unique_leading_payload``) that payload is the tie-break comparand
+    instead of an index plane. Unstable: no index plane; at a power of two
+    the tie-safe rule (n_cmp < 0), else every plane compares, since the
+    0xFFFFFFFF pads would tie with real max-key rows and tie-safe cannot
+    order them past the pads (ties are then bit-identical rows)."""
+    full = all(b == 0 and e == 8 * c.element_size()
+               for c, (b, e) in zip(limbs, limb_bits))
+    four_byte = all(p.element_size() == 4 for p in payloads)
+    n_keys = sum(c.element_size() // 4 for c in limbs)  # u32 planes
+    n_total = n_keys + (1 if stable and not tag else 0) + len(payloads)
     if not (full and four_byte and payloads and n_total <= 4):
         return None
     n = limbs[0].shape[0]
-    pays, specs = [], []
-    for p in payloads:
-        (plane,), spec = _to_planes(p)
-        pays.append(plane)
-        specs.append(spec)
+    keys, pays = _u32_planes(limbs), list(payloads)
     if stable and tag:
-        planes, n_cmp = list(limbs) + pays, len(limbs) + 1
+        planes, n_cmp = keys + pays, n_keys + 1
     elif stable:
         idx = torch.arange(n, dtype=torch.int32, device=limbs[0].device)
-        planes = list(limbs) + [idx.view(torch.uint32)] + pays
-        n_cmp = len(limbs) + 1
+        planes = keys + [idx.view(torch.uint32)] + pays
+        n_cmp = n_keys + 1
     else:
-        planes = list(limbs) + pays
+        planes = keys + pays
         npad = 1 << max((n - 1).bit_length(), 10)
-        n_cmp = -len(limbs) if npad == n else len(planes)
+        n_cmp = -n_keys if npad == n else len(planes)
     out = _bitonic_planes(planes, n, n_cmp, cfg)
-    skip = len(limbs) + (1 if stable and not tag else 0)
-    return (out[:len(limbs)],
-            [_from_planes([o], spec) for o, spec in zip(out[skip:], specs)])
+    skip = n_keys + (1 if stable and not tag else 0)
+    return _join_u32(out[:n_keys], limbs), out[skip:]
+
+
+def _u32_planes(limbs) -> list[torch.Tensor]:
+    """The network's u32 planes of key columns, most significant first: a
+    u32 column as it is, an 8-byte column as contiguous copies of its (hi,
+    lo) words."""
+    planes = []
+    for c in limbs:
+        if c.element_size() == 4:
+            planes.append(c)
+            continue
+        _staged(16 * c.shape[0])
+        words = c.view(torch.int32).reshape(-1, 2)
+        planes += [words[:, w].contiguous().view(torch.uint32) for w in (1, 0)]
+    return planes
+
+
+def _join_u32(planes, limbs) -> list[torch.Tensor]:
+    """Inverse of :func:`_u32_planes`: the network's planes as fresh
+    columns of the dtypes of ``limbs``."""
+    out, planes = [], iter(planes)
+    for c in limbs:
+        q = next(planes)
+        if c.element_size() == 8:
+            _staged(16 * c.shape[0])
+            q = torch.stack([next(planes).view(torch.int32),
+                             q.view(torch.int32)], dim=1).view(c.dtype)
+        out.append(q.reshape(-1))
+    return out
 
 
 def _sort_keys_bitonic(keys: torch.Tensor, descending: bool, cfg):
     """Keys-only network sort: 1 plane, or (hi, lo) for 64-bit keys."""
     limbs, _ = _key_to_limbs(keys, descending, None, None)
-    out = _bitonic_planes(limbs, keys.shape[0], len(limbs), cfg)
-    return _limbs_to_key(out, keys.dtype, descending)
+    planes = _u32_planes(limbs)
+    out = _bitonic_planes(planes, keys.shape[0], len(planes), cfg)
+    return _limbs_to_key(_join_u32(out, limbs), keys.dtype, descending)
 
 
 def _argsort_bitonic(keys: torch.Tensor, descending: bool, cfg):
@@ -453,69 +466,44 @@ def full_range(dtype: torch.dtype, begin_bit, end_bit) -> bool:
     return begin_bit in (None, 0) and end_bit in (None, twiddle.bit_width(dtype))
 
 
-def _key_to_limbs(keys: torch.Tensor, descending: bool, begin_bit, end_bit,
-                  radix: bool = False):
-    """Twiddle keys and split them into u32 limb columns, most significant
-    first. Returns (limbs, limb_bits). ``radix``: for the LSD loop, which
-    takes a 64-bit key as the two halves of its words (views of the
-    twiddled bits, or of the caller's keys for unsigned keys in ascending
-    order: no copy); the copies made are counted in STAGED_BYTES."""
+def _key_to_limbs(keys: torch.Tensor, descending: bool, begin_bit, end_bit):
+    """Twiddle keys into one key column: ([column], [(begin, end)]), the
+    column u32 (keys of up to 32 bits; narrower keys widened) or int64 (the
+    bits of 64-bit keys), a view of the caller's keys for unsigned keys of
+    4 or 8 bytes in ascending order; the copies made are counted in
+    STAGED_BYTES."""
     width = twiddle.bit_width(keys.dtype)
     begin = 0 if begin_bit is None else begin_bit
     end = width if end_bit is None else end_bit
     if not 0 <= begin <= end <= width:
         raise ValueError(f"bad bit range [{begin}, {end}) for {keys.dtype}")
     n, size = keys.shape[0], keys.dtype.itemsize
-    if radix:
-        _staged((0 if keys.is_contiguous() else 2 * n * size)
-                + _twiddle_bytes(keys.dtype, n, descending))
+    _staged((0 if keys.is_contiguous() else 2 * n * size)
+            + _twiddle_bytes(keys.dtype, n, descending))
     bits = twiddle.signed_view(twiddle.twiddle_in(keys.contiguous(), descending))
     if width < 32:
-        if radix:
-            _staged(n * (size + 4))
-        limb = (bits.to(torch.int32) & ((1 << width) - 1)).view(torch.uint32)
-        return [limb], [(begin, end)]
-    if width == 32:
-        return [bits.view(torch.uint32)], [(begin, end)]
-    # 64-bit keys: little-endian (lo, hi) halves of the bits
-    lo_range = (min(begin, 32), min(end, 32))
-    hi_range = (max(begin, 32) - 32, max(end, 32) - 32)
-    if radix:
-        lo, hi = hist_lib.halves(bits)
-        return [hi, lo], [hi_range, lo_range]
-    lohi = bits.view(torch.int32).reshape(-1, 2)
-    hi = lohi[:, 1].contiguous().view(torch.uint32)
-    lo = lohi[:, 0].contiguous().view(torch.uint32)
-    return [hi, lo], [hi_range, lo_range]
+        _staged(n * (size + 4))
+        bits = (bits.to(torch.int32) & ((1 << width) - 1)).view(torch.uint32)
+    elif width == 32:
+        bits = bits.view(torch.uint32)
+    return [bits], [(begin, end)]
 
 
-def _limbs_to_key(limbs, dtype: torch.dtype, descending: bool,
-                  radix: bool = False) -> torch.Tensor:
-    """Inverse of :func:`_key_to_limbs`. ``radix``: limbs from the LSD
-    loop, which nothing else holds and whose 64-bit result is one column
-    (hi, lo its halves), so unsigned keys in ascending order come back as
-    its own words (no join, no clone)."""
+def _limbs_to_key(limbs, dtype: torch.dtype, descending: bool) -> torch.Tensor:
+    """Inverse of :func:`_key_to_limbs` on an engine's fresh column, which
+    nothing else holds: unsigned keys in ascending order come back as its
+    own words (no copy)."""
     width = twiddle.bit_width(dtype)
     u = twiddle.unsigned_dtype(dtype)
-    n = limbs[0].shape[0]
+    (bits,) = limbs
+    n = bits.shape[0]
     if width < 32:
-        if radix:
-            _staged(n * (4 + dtype.itemsize))
+        _staged(n * (4 + dtype.itemsize))
         narrow = torch.int8 if width == 8 else torch.int16
-        bits = limbs[0].view(torch.int32).to(narrow).view(u)
-    elif width == 32:
-        bits = limbs[0]
-    elif radix and hist_lib.is_pair(limbs[1], limbs[0]):
-        bits = hist_lib.column_of(limbs[1]).view(u)
-    else:
-        if radix:
-            _staged(16 * n)
-        hi, lo = (q.view(torch.int32) for q in limbs)
-        bits = torch.stack([lo, hi], dim=1).view(torch.int64).reshape(-1).view(u)
-    if radix:
-        _staged(_twiddle_bytes(dtype, n, descending))
-    return twiddle.twiddle_out(bits, dtype, descending=descending,
-                               copy=not radix)
+        bits = bits.view(torch.int32).to(narrow)
+    _staged(_twiddle_bytes(dtype, n, descending))
+    return twiddle.twiddle_out(bits.view(u), dtype, descending=descending,
+                               copy=False)
 
 
 # ---------------------------------------------------------------------------
@@ -562,11 +550,9 @@ def sort(keys: torch.Tensor, *, descending: bool = False,
         return keys.clone()
     if cfg.engine == "bitonic" and full_range(keys.dtype, begin_bit, end_bit):
         return _sort_keys_bitonic(keys, descending, cfg)
-    radix = cfg.engine == "radix"
-    limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit,
-                                     radix)
+    limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit)
     limbs, _ = _sort_limbs(limbs, limb_bits, [], cfg)
-    return _limbs_to_key(limbs, keys.dtype, descending, radix)
+    return _limbs_to_key(limbs, keys.dtype, descending)
 
 
 @traced
@@ -594,12 +580,10 @@ def sort_pairs(keys: torch.Tensor, values, *, descending: bool = False,
         _check_1d(f"values leaf {i}", v, n, keys.device)
     if n == 0:
         return keys.clone(), _unflatten(spec, iter([v.clone() for v in leaves]))
-    radix = cfg.engine == "radix"
-    limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit,
-                                     radix)
+    limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit)
     limbs, out = _sort_limbs(limbs, limb_bits, leaves, cfg, stable=stable,
                              unique_leading_payload=unique_leading_payload)
-    return (_limbs_to_key(limbs, keys.dtype, descending, radix),
+    return (_limbs_to_key(limbs, keys.dtype, descending),
             _unflatten(spec, iter(out)))
 
 
@@ -646,21 +630,15 @@ def sort_struct(key_columns, values=None, *, descending: bool = False,
         out_cols = tuple(c.clone() for c in cols)
         out = [v.clone() for v in leaves]
     else:
-        radix = cfg.engine == "radix"
-        limbs, limb_bits, spans = [], [], []
+        limbs, limb_bits = [], []
         for col in cols:
-            lb, bb = _key_to_limbs(col, descending, None, None, radix)
-            spans.append(len(lb))
-            limbs += lb
-            limb_bits += bb
+            (limb,), (bits,) = _key_to_limbs(col, descending, None, None)
+            limbs.append(limb)
+            limb_bits.append(bits)
         limbs, out = _sort_limbs(limbs, limb_bits, leaves, cfg,
                                  stable=stable)
-        out_cols, i = [], 0
-        for col, span in zip(cols, spans):
-            out_cols.append(_limbs_to_key(limbs[i:i + span], col.dtype,
-                                          descending, radix))
-            i += span
-        out_cols = tuple(out_cols)
+        out_cols = tuple(_limbs_to_key([limb], col.dtype, descending)
+                         for limb, col in zip(limbs, cols))
     if values is None:
         return out_cols
     return out_cols, _unflatten(spec, iter(out))

@@ -277,7 +277,7 @@ def remove_if(x, pred: Callable, *, config=None):
 
 def stable_partition(x, pred: Callable, *, config=None):
     """thrust::stable_partition -> (reordered, num_true): rows [0, num_true)
-    satisfy pred, the rest do not, both halves in input order (the
+    satisfy pred, the rest do not, both parts in input order (the
     compaction keeps the dropped rows in order behind the kept ones)."""
     (out,), count = filter_columns(pred(x), (x,), config=config)
     return out, count

@@ -45,7 +45,7 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # C entry points: name -> argtypes. Each returns a cudaError_t as int.
 _SIGNATURES = {
-    # keys (void**), masks (u32*), n_stages (int*), halves (int*), n_limbs,
+    # keys (void**), masks (u32*), n_stages (int*), half flags (int*), n_limbs,
     # n, width, out, scratch, table_bins, grid, threads, stream
     "rs_limb_histograms": [_P, _P, _P, _P, _I, _I64, _I, _P, _P, _I, _I, _I,
                            _P],

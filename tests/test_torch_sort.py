@@ -259,9 +259,10 @@ def test_rejects_mismatched_values():
     (32, 64, True)])
 def test_u64_pipeline_one_histogram_per_sort(begin, end, descending,
                                              monkeypatch):
-    # the LSD loop counts every limb's stages in one histogram call before
-    # the first pass (one launch and one host read on the card), whatever
-    # the bit range; the result is the JAX package's, bit for bit
+    # the LSD loop counts every stage of the key's one 8-byte column in one
+    # histogram call before the first pass (one launch and one host read on
+    # the card), whatever the bit range; the result is the JAX package's,
+    # bit for bit
     from cuda.radixsort_tpu_torch.kernels import histogram as hist_lib
 
     calls = []
@@ -281,7 +282,7 @@ def test_u64_pipeline_one_histogram_per_sort(begin, end, descending,
                            end_bit=end, descending=descending)
     _eq(tk, np.asarray(jk))
     _eq(ti, np.asarray(ji))
-    assert len(calls) == 1 and len(calls[0]) == 2, calls
+    assert calls == [[(begin, end)]], calls
 
 
 def test_device_row_limit_matches_the_reference():

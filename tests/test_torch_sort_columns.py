@@ -1,14 +1,14 @@
 """8-byte columns on the radix route, on the CPU (the kernels' plain
 versions).
 
-A 64-bit key or an 8-byte payload crosses the LSD loop in place: the sort
-API hands ``kernels/pipeline.py::sort_limbs`` the two halves of the
-caller's words (or of the twiddled bits) as stride-2 views, the first pass
-reads them, the last pass writes the result's own 8-byte columns, and the
-result is those columns. These tests hold the views to the caller's
-storage, the results to the reference engine bit for bit, the kernels'
-plain versions to the same answers on views as on contiguous planes, and
-``ops/sort.py::STAGED_BYTES`` to the copies the route still makes.
+A 64-bit key or an 8-byte payload crosses the LSD loop as one column: the
+sort API hands ``kernels/pipeline.py::sort_limbs`` the caller's column (or
+the twiddled bits), the first pass reads it, the last pass writes the
+result's own 8-byte column, and the result is that column. These tests hold
+the loop's inputs to the caller's storage, the results to the reference
+engine bit for bit, the kernels' plain versions on a column to the same
+answers as on its contiguous u32 words, and ``ops/sort.py::STAGED_BYTES``
+to the copies the route still makes.
 """
 
 import importlib
@@ -62,17 +62,13 @@ def test_the_loop_reads_the_callers_words(value_dtype, monkeypatch):
     values = _words(N, value_dtype, 2)
     seen = _spy(monkeypatch)
     out_keys, out_values = rt.sort_pairs(keys, values)
-    (limbs, payloads), = seen
-    hi, lo = limbs
-    assert lo.stride() == hi.stride() == (2,)
-    assert lo.data_ptr() == keys.data_ptr()
-    assert hi.data_ptr() == keys.data_ptr() + 4
+    ((key,), (payload,)), = seen
+    assert key.element_size() == 8 and key.is_contiguous()
+    assert key.data_ptr() == keys.data_ptr()
+    assert payload.data_ptr() == values.data_ptr()
+    assert payload.element_size() == value_dtype.itemsize
     if value_dtype.itemsize == 8:
-        plo, phi = payloads
-        assert plo.stride() == (2,) and plo.data_ptr() == values.data_ptr()
-        assert phi.data_ptr() == values.data_ptr() + 4
-    else:
-        assert payloads[0].data_ptr() == values.data_ptr()
+        assert payload.dtype == value_dtype
     # the result is the loop's own columns, not the inputs
     assert out_keys.data_ptr() != keys.data_ptr()
     assert out_values.data_ptr() != values.data_ptr()
@@ -159,89 +155,124 @@ def test_keys_only_and_struct_sorts_keep_the_layout(case):
                           config=REFERENCE)
     for g, w in zip(got[0] + (got[1],), want[0] + (want[1],)):
         _same(g, w)
-    # one column given twice: its halves pair with their neighbours
+    # one column given as two keys: two columns of the same memory
     twice = rt.sort_struct([keys, keys])
     _same(twice[0], out)
     _same(twice[1], out)
 
 
 @pytest.mark.parametrize("n_passes", [0, 1, 2, 3])
-def test_sort_limbs_writes_the_result_last(n_passes):
+def test_sort_limbs_writes_the_result_last(n_passes, monkeypatch):
     # with k executed passes the first reads the inputs and the last writes
     # the fresh result columns, whatever the parity of k
     keys = (_words(N, torch.int64, 9) & ((1 << (8 * n_passes)) - 1)
             if n_passes else torch.zeros(N, dtype=torch.int64))
     pay = _words(N, torch.int64, 10)
-    lo, hi = hist.halves(keys)
-    plo, phi = hist.halves(pay)
-    cfg = SortConfig()
-    (ohi, olo), (oplo, ophi) = kpipe.sort_limbs([hi, lo], [(0, 32), (0, 32)],
-                                                [plo, phi], cfg)
-    assert hist.is_pair(olo, ohi) and hist.is_pair(oplo, ophi)
-    got = hist.column_of(olo)
+    calls = []
+    real = stage.partition_stage
+
+    def spy(columns, gbase, **kw):
+        calls.append(([c.data_ptr() for c in columns],
+                      [o.data_ptr() for o in kw["out"]]))
+        return real(columns, gbase, **kw)
+
+    monkeypatch.setattr(stage, "partition_stage", spy)
+    (got,), (got_pay,) = kpipe.sort_limbs([keys], [(0, 64)], [pay],
+                                          SortConfig())
+    assert got.dtype == keys.dtype and got_pay.dtype == pay.dtype
     assert got.data_ptr() != keys.data_ptr()
+    assert len(calls) == n_passes
+    if n_passes:
+        assert calls[0][0] == [keys.data_ptr(), pay.data_ptr()]
+        assert calls[-1][1] == [got.data_ptr(), got_pay.data_ptr()]
     order = torch.sort(keys, stable=True).indices
     assert torch.equal(got, keys[order])
-    assert torch.equal(hist.column_of(oplo), pay[order])
+    assert torch.equal(got_pay, pay[order])
 
 
-def _stage_inputs(n: int, seed: int):
-    col = _words(n, torch.int64, seed)
-    lo, hi = hist.halves(col)
-    pay = _words(n, torch.uint32, seed + 1)
-    gbase = hist.stage_bases(hist.digit_histograms_plain(
-        lo.contiguous(), n_stages=4, width=8))
-    return lo, hi, pay, gbase
+@pytest.mark.parametrize("width", [8, 4, 2])
+def test_a_range_across_bit_32_matches_the_reference_engine(width):
+    # bits [20, 50) of one 64-bit column: masked passes in both words
+    keys = _words(N, torch.int64, 17)
+    pay = _words(N, torch.uint32, 18)
+    cfg = SortConfig(radix_bits=width)
+    got = kpipe.sort_limbs([keys], [(20, 50)], [pay], cfg)
+    want = tsort._sort_limbs_reference([keys], [(20, 50)], [pay],
+                                       cfg.replace(engine="reference"))
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        _same(g, w)
 
 
-@pytest.mark.parametrize("key", ["lo", "hi"])
+def _halves(col: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi): contiguous copies of the u32 words of an 8-byte column."""
+    words = col.view(torch.int32).reshape(-1, 2)
+    return (words[:, 0].contiguous().view(torch.uint32),
+            words[:, 1].contiguous().view(torch.uint32))
+
+
+def _gbase(key: torch.Tensor, shift: int, width: int) -> torch.Tensor:
+    counts = torch.bincount(hist.digits(key, shift, width),
+                            minlength=1 << width)
+    return (torch.cumsum(counts, 0) - counts).to(torch.int32)
+
+
+@pytest.mark.parametrize("shift", [8, 40])
 @pytest.mark.parametrize("n", [1, 7, 300])
-def test_stage_plain_takes_the_halves_of_a_column(key, n):
-    lo, hi, pay, _ = _stage_inputs(n, 11)
-    planes = [lo, hi, pay] if key == "lo" else [hi, pay, lo]
-    flat = [p.contiguous() for p in planes]
-    k = planes[0].contiguous()
-    gbase = hist.stage_bases(hist.digit_histograms_plain(
-        k, n_stages=4, width=8))[1].contiguous()
-    got = stage.partition_stage(planes, gbase, shift=8, width=8)
-    want = stage.partition_stage_plain(flat, gbase, shift=8, width=8)
-    for g, w, p in zip(got, want, planes):
-        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
-        assert g.stride() == p.stride()
-    assert hist.is_pair(*((got[0], got[1]) if key == "lo"
-                          else (got[2], got[0])))
+def test_stage_plain_takes_the_halves_of_a_column(shift, n):
+    # an 8-byte key column at a digit in its low or high word, beside a u32
+    # and an 8-byte payload, against the same pass on contiguous u32 words
+    col = _words(n, torch.int64, 11)
+    pay = _words(n, torch.uint32, 12)
+    wide = _words(n, torch.float64, 13)
+    lo, hi = _halves(col)
+    wlo, whi = _halves(wide)
+    gbase = _gbase(col, shift, 8)
+    got = stage.partition_stage([col, pay, wide], gbase, shift=shift, width=8)
+    key = hi if shift >= 32 else lo
+    want = stage.partition_stage_plain([key, lo, hi, pay, wlo, whi], gbase,
+                                       shift=shift % 32, width=8)
+    assert [g.dtype for g in got] == [col.dtype, pay.dtype, wide.dtype]
+    assert all(torch.equal(a, b) for a, b in zip(_halves(got[0]), want[1:3]))
+    assert torch.equal(got[1], want[3])
+    assert all(torch.equal(a, b) for a, b in zip(_halves(got[2]), want[4:]))
 
 
 def test_stage_refuses_a_half_without_its_other_half():
-    lo, hi, pay, gbase = _stage_inputs(64, 12)
-    gbase = gbase[0].contiguous()
-    with pytest.raises(ValueError):
-        stage.partition_stage([lo, pay], gbase, shift=0, width=8)
-    with pytest.raises(ValueError):  # outputs in another layout
-        stage.partition_stage([lo, hi], gbase, shift=0, width=8,
-                              out=[torch.empty_like(lo.contiguous()),
-                                   torch.empty_like(hi.contiguous())])
-    with pytest.raises(ValueError):  # a stride-3 view
-        stage.partition_stage([_words(192, torch.uint32, 1)[::3]], gbase,
-                              shift=0, width=8)
+    col = _words(64, torch.int64, 12)
+    lo = col.view(torch.int32).reshape(-1, 2)[:, 0].view(torch.uint32)
+    gbase = _gbase(col, 0, 8)
+    with pytest.raises(ValueError):  # a stride-2 half: not contiguous
+        stage.partition_stage([lo], gbase, shift=0, width=8)
+    with pytest.raises(TypeError):  # a 2-byte column
+        stage.partition_stage([col, col.to(torch.int16)], gbase, shift=0,
+                              width=8)
+    with pytest.raises(ValueError):  # past bit 64
+        stage.partition_stage([col], gbase, shift=60, width=8)
+    with pytest.raises(ValueError):  # past bit 32 of a u32 key
+        stage.partition_stage([lo.contiguous(), col], gbase, shift=32,
+                              width=8)
+    with pytest.raises(ValueError):  # outputs of another dtype
+        stage.partition_stage([col], gbase, shift=0, width=8,
+                              out=[torch.empty(64, dtype=torch.float32)])
 
 
-@pytest.mark.parametrize("limb_bits", [[(0, 32), (0, 32)], [(0, 27), (5, 32)],
-                                       [(0, 16), (32, 32)],
-                                       [(0, 0), (3, 29)]])
+@pytest.mark.parametrize("bits", [(0, 64), (5, 59), (0, 16), (32, 64)])
 @pytest.mark.parametrize("width", [8, 4, 2])
-def test_limb_histograms_plain_take_the_halves_of_a_column(limb_bits, width):
+def test_limb_histograms_plain_take_the_halves_of_a_column(bits, width):
     col = _words(999, torch.int64, 13)
-    lo, hi = hist.halves(col)
-    got = hist.limb_histograms_plain([hi, lo], limb_bits, width)
-    want = hist.limb_histograms_plain([hi.contiguous(), lo.contiguous()],
-                                      limb_bits, width)
+    lo, hi = _halves(col)
+    got = hist.limb_histograms_plain([col], [bits], width)
+    want = hist.limb_histograms_plain([hi, lo], hist.word_ranges(col, *bits),
+                                      width)
     assert torch.equal(got, want)
-    # the halves must be neighbouring limbs
-    other = _words(999, torch.uint32, 14)
-    with pytest.raises(ValueError):
-        hist.limb_histograms_plain([hi, other, lo], limb_bits[:1] + [(0, 32)]
-                                   + limb_bits[1:], width)
+    # stage_rows finds every stage of the column's hull
+    rows = hist.stage_rows([col], [bits], width)
+    mask = ((1 << bits[1]) - 1) & ~((1 << bits[0]) - 1)
+    key = col & (mask - (1 << 64) if mask >> 63 else mask)
+    for shift in range(bits[0] // width * width, -(-bits[1] // width) * width,
+                       width):
+        assert torch.equal(got[rows[0, shift]].to(torch.int64), torch.bincount(
+            hist.digits(key, shift, width), minlength=1 << width))
 
 
 # (call, key dtype, payload dtype, descending): STAGED_BYTES per row
@@ -273,10 +304,13 @@ def test_staged_bytes_count_the_routes_copies(call, key_dtype, value_dtype,
                   else _words(N, torch.int32, 16).to(value_dtype))
         rt.sort_pairs(keys, values, descending=descending)
     assert tsort.STAGED_BYTES - before == per_row * N
-    # the reference engine is not the radix route: nothing counted
+    # the reference engine takes the same columns: the same copies counted
     before = tsort.STAGED_BYTES
-    rt.sort(keys, descending=descending, config=REFERENCE)
-    assert tsort.STAGED_BYTES == before
+    if call == "sort":
+        rt.sort(keys, descending=descending, config=REFERENCE)
+    else:
+        rt.sort_pairs(keys, values, descending=descending, config=REFERENCE)
+    assert tsort.STAGED_BYTES - before == per_row * N
 
 
 @pytest.mark.parametrize("threads", [32, 128, 256, 512])
