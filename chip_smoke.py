@@ -44,14 +44,17 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      and shuffles, all three; the tile kernel's entry point refuses a phase
      list or block its geometry cannot run); the stage kernel also below
      one tile, at whole tiles, with 10 planes (a second launch), on a
-     one-digit 2^28 key plane (one bucket whose lookback carries every
-     tile) and three times on one 2^24 input (the same bits); each
+     ragged last tile whose valid keys all have digit 0 (no lane past the
+     end joins their peers), on a one-digit 2^28 key plane (one bucket
+     whose lookback carries every tile) and three times on one 2^24 input
+     (the same bits); each
      kernel's registers, spills and stack frame as ptxas reports them;
   3a. paired: partition_stage and limb_histograms on 8-byte columns (the
      sort API's 64-bit keys and 8-byte payloads) against their plain
      versions on the same columns, bit for bit: an 8-byte key's digit in
      either word, a u32 or a masked 8-byte key beside the column, 8-byte
-     payloads, second launches, n = 1 to 2^24 - 777 and 2^28, histograms of
+     payloads, second launches, n = 1 to 2^24 - 777 and 2^28, the e0201
+     cell's keys (the AND of 5 words) at 2^24, histograms of
      columns 0 or 8 bytes past a 16-byte boundary over aligned, unaligned
      and empty 64-bit ranges; then config 2's pass and histograms on the
      column timed beside the same work on contiguous u32 planes;
@@ -522,6 +525,17 @@ def phase_kernels(gen: torch.Generator) -> dict:
         for width, shift in ((8, 0), (4, 28), (2, 14)):
             errs["partition_stage"] = max(errs["partition_stage"], _stage_case(
                 planes, width, shift, f"n={n} planes={n_planes}"))
+    # a ragged last tile whose valid keys all have digit 0: the lanes past
+    # the end hold no key and must not join digit 0's peers
+    n = tile * 37 + 5
+    for width, shift in ((8, 0), (4, 28), (2, 14)):
+        clear = ~(((1 << width) - 1) << shift) & 0xFFFFFFFF
+        keys = (rand_bits(n, torch.uint32, gen).view(torch.int32)
+                & (clear - (1 << 32) if clear >> 31 else clear))
+        keys = keys.view(torch.uint32)
+        errs["partition_stage"] = max(errs["partition_stage"], _stage_case(
+            [keys, rand_bits(n, torch.uint32, gen)], width, shift,
+            f"n={n} every key in digit 0"))
     keys = rand_bits(N_KEYS, torch.uint32, gen)
     planes = [keys, rand_bits(N_KEYS, torch.uint32, gen)]
     gbase = hist.stage_bases(hist.digit_histograms_plain(
@@ -533,10 +547,11 @@ def phase_kernels(gen: torch.Generator) -> dict:
     for r, got in enumerate(runs):
         e = max(max_abs_err(g, w) for g, w in zip(got, want))
         expect(e == 0, f"partition_stage 2^24 run {r}: max err {e}")
-    log(f"[kernels] partition_stage == plain on {3 * len(edges)} edge cases "
-        f"(n = 1, 31, tile-1, tile, 1000 tiles, tile-1 and 37 tiles + 5 "
-        f"with 10 planes; tile {tile}; widths 8/4/2) and 3 runs of one "
-        f"2^24 pass, the same bits each time")
+    log(f"[kernels] partition_stage == plain on {3 * len(edges) + 3} edge "
+        f"cases (n = 1, 31, tile-1, tile, 1000 tiles, tile-1 and 37 tiles "
+        f"+ 5 with 10 planes, 37 tiles + 5 with every key in digit 0; tile "
+        f"{tile}; widths 8/4/2) and 3 runs of one 2^24 pass, the same bits "
+        f"each time")
     del keys, planes, runs, want, got
 
     # Config 2's shapes: both kernels at 2^28 keys, width 8, on the low key
@@ -711,6 +726,15 @@ def phase_paired(gen: torch.Generator) -> dict:
         for cols, shifts, what in cases:
             for width, shift in shifts:
                 stage_case(cols, width, shift, f"n={n} {what}")
+    # the e0201 cell's keys (the AND of 5 words: 78% of keys in digit 0 of
+    # every pass) through the paired instance
+    col = u64_column(N_KEYS, gen).view(torch.int64)
+    for _ in range(4):
+        col = col & u64_column(N_KEYS, gen).view(torch.int64)
+    pay = rand_bits(N_KEYS, torch.uint32, gen)
+    for shift in (0, 24, 32, 56):
+        stage_case([col.view(torch.uint64), pay], 8, shift,
+                   "2^24 u64 + u32, keys the AND of 5 words")
     col = u64_column(N_PAIRS, gen)
     pay = rand_bits(N_PAIRS, torch.uint32, gen)
     for shift in (0, 56):
@@ -718,7 +742,7 @@ def phase_paired(gen: torch.Generator) -> dict:
     log(f"[paired] partition_stage on 8-byte columns == plain on {n_stage} "
         f"cases (n = 1 .. 2^24 - 777 and 2^28; an 8-byte key's digit in "
         f"either word, a u32 or masked u64 key beside the column, 8-byte "
-        f"payloads, second launches; widths 8/4/2)")
+        f"payloads, second launches; widths 8/4/2; e0201's keys at 2^24)")
 
     step = 8 * hist.THREADS  # rows a block counts per step
     ranges_all = [(0, 64), (5, 59), (0, 28), (36, 64), (20, 50), (0, 16),

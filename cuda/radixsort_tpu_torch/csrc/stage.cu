@@ -9,54 +9,70 @@
 //
 // Bound on this card: device memory. A pass must read and write 4 B per
 // plane per key; the key plane is read once, and the scan state is 8 B per
-// digit per tile (reset with one memset per pass). What held the first
-// version back was the store: each lane wrote its word to its own bucket
-// run, so one warp's 32 stores touched up to 32 sectors, and the pass read
-// the keys three times in three launches. What bounds this one at 2^24 is
-// not known yet: it runs several times its byte bound (PERF.md).
+// digit per tile (reset with one memset per pass). The extra planes of a
+// pass move at about their byte bound; what a pass spends beyond that is
+// work done once per key, whatever the bytes: the rank, the scans, the
+// lookback and the barriers (PERF.md splits a block's time by phase).
 //
-// Design: a onesweep pass (CUB's agent_radix_sort_onesweep.cuh, the
-// function, not the code): one launch per group of up to 8 planes.
+// Design: a onesweep pass (CUB's agent_radix_sort_onesweep.cuh with its
+// early-counts rank, block_radix_rank.cuh's BlockRadixRankMatchEarlyCounts:
+// the function, not the code): one launch per group of up to 8 planes.
 //   1. Tile claim: a block takes its tile index from an atomic counter, so
 //      tiles run in claim order and a lookback only waits on tiles whose
 //      blocks are already running.
-//   2. Rank: each warp loads its 32 * ITEMS keys once (coalesced rounds of
-//      32) into registers. In each round __match_any_sync groups the lanes of
-//      equal digit; popc(peers & lanemask_lt) plus the warp's running count
-//      is a key's rank. Rank order is warps, then rounds, then lanes: index
-//      order, so the pass is stable. A scan over warps and one over digits
-//      give every key its slot in the digit-sorted tile.
-//   3. Decoupled lookback: the tile publishes its per-digit counts as
-//      PARTIAL in a 64-bit status word per (tile, digit) (two flag bits and a
-//      62-bit count), walks back over earlier tiles adding counts until an
-//      INCLUSIVE word, publishes its own INCLUSIVE prefix, and adds
-//      gbase[d]. Offsets are int64.
-//   4. Exchange: each key's slot in the digit-sorted tile is known before
-//      the lookback, so the keys and their digits go to shared memory
-//      then, and the next plane's values are loaded ahead of the lookback
-//      and of each store. After a barrier consecutive threads read
-//      consecutive slots and store slot s of digit d at
-//      offset[d] + (s - tile_start[d]), so each bucket run is written by
-//      contiguous lanes in whole sectors; one plane at a time through one
-//      reused buffer.
+//   2. Count: each warp loads its 32 * ITEMS keys once (coalesced rounds of
+//      32) into registers and adds each key to its digit in the warp's row
+//      of counts with one shared atomic. The compiler aggregates a warp's
+//      increments of one address (ATOMS.POPC.INC), so a digit that most
+//      keys share (78% in CCCL's entropy-0.201 keys) costs no more: the
+//      counters need no splitting into parts.
+//   3. Publish early: per digit, a scan over the warps' rows gives the
+//      tile's count, published at once, before any key is ranked, in a
+//      64-bit status word per (tile, digit) (two flag bits and a 62-bit
+//      count): INCLUSIVE for tile 0, else PARTIAL. A scan over digits then
+//      turns each warp's row into the slot of its first key of each digit
+//      in the digit-sorted tile.
+//   4. Rank: in each round eight ballots (one per digit bit) give each lane
+//      the mask of the lanes that share its digit, ANDed with a ballot of
+//      the lanes inside the tile on the last tile; the mask's highest lane
+//      takes the peers' slots from the warp's entry of the digit with one
+//      shared atomic and shuffles the first to them; a key's slot is that
+//      plus the peers in lower lanes. No match instruction, no warp barrier
+//      and no fix-up after. Order is warps, then rounds, then lanes: index
+//      order, so the pass is stable. The keys and the slots' digits go to
+//      shared memory as they are ranked. Whole tiles (all but the last) run
+//      the count and the rank without bounds checks.
+//   5. Decoupled lookback, after the rank and after the next plane's values
+//      are loaded ahead: per digit, the thread that published it walks back
+//      over earlier tiles, kWindow at a time, adding counts until an
+//      INCLUSIVE word, publishes its own INCLUSIVE prefix and adds
+//      gbase[d]. Offsets are int64. Each word carries all it tells and the
+//      same thread stored the PARTIAL word before, so no fence is needed.
+//      The whole rank lies between a tile's publish and its walk, so the
+//      tiles claimed just before it have published when it looks.
+//   6. Exchange: after a barrier consecutive threads read consecutive
+//      slots and store slot s of digit d at offset[d] + (s - tile_start[d]),
+//      so each bucket run is written by contiguous lanes in whole sectors;
+//      one plane at a time through one reused buffer, the next plane's
+//      values loaded ahead of each store.
 // Planes beyond the first 8 run in further launches that rank the same keys
 // again and read each tile's INCLUSIVE words, which the first launch left;
 // they do not look back.
 //
-// 8-byte columns (a 64-bit key's two limbs, an 8-byte payload) come as one
-// plane of the launch each, both u32 halves together: the wrapper pairs the
-// halves it is given (stride-2 views of one column) and the PAIRED
-// instantiation loads each row's 8 bytes as one word, exchanges them through
-// 8-byte slots and stores one 8-byte word a slot, so every output sector is
-// written whole. The rank reads the key's half at element stride 2 (the
-// sectors the column's exchange reads again, from L2). A thread holds the
-// words of half its rows at a time, in the registers that hold a u32 plane:
-// the first half is loaded ahead, the second as the first is exchanged.
-// Launches of u32 planes only run the other instantiation, which is the
-// kernel as it was before 8-byte columns: no stride, no wider registers.
+// 8-byte columns (a 64-bit key, an 8-byte payload) come as one plane of the
+// launch each: the PAIRED instantiation loads each row's 8 bytes as one
+// word, exchanges them through 8-byte slots and stores one 8-byte word a
+// slot, so every output sector is written whole. The rank reads the key's
+// half at element stride 2 (the sectors the column's exchange reads again,
+// from L2). A thread holds the words of half its rows at a time, in the
+// registers that hold a u32 plane: the first half is loaded ahead, the
+// second as the first is exchanged. Launches of u32 planes only run the
+// other instantiation: no stride, no wider registers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "rs_limits.h"  // config.py's limits, written by utils/build.py
 
@@ -108,6 +124,27 @@ __device__ long long block_inclusive_scan(long long v, long long* s_warp) {
   return v + (warp > 0 ? s_warp[warp - 1] : 0);
 }
 
+// The lanes whose digit equals this lane's d: one ballot per bit, each
+// ANDed in as is or inverted (as CUB's MatchAny; __match_any_sync is slower
+// on a few bits). Bits at and above the pass's width are 0 in every lane,
+// so their ballots change nothing. The warp must be converged.
+__device__ __forceinline__ unsigned match_digit(uint32_t d) {
+  unsigned peers = kFull;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    unsigned same;
+    asm("{\n\t.reg .pred p;\n\t"
+        "and.b32 %0, %1, %2;\n\t"
+        "setp.ne.u32 p, %0, 0;\n\t"
+        "vote.ballot.sync.b32 %0, p, 0xffffffff;\n\t"
+        "@!p not.b32 %0, %0;\n\t}"
+        : "=r"(same)
+        : "r"(d), "r"(1u << b));
+    peers &= same;
+  }
+  return peers;
+}
+
 __device__ __forceinline__ unsigned long long load_status(
     const unsigned long long* p) {
   return *(const volatile unsigned long long*)p;
@@ -150,6 +187,11 @@ __global__ void __launch_bounds__(kMaxThreads, ITEMS <= 16 ? 2 : 1)
   const unsigned lt = (1u << lane) - 1u;
   const uint32_t mask = nb - 1;
   unsigned long long* tiles = status + 1;
+  // this thread's run of digits [lo, hi): it publishes their counts, scans
+  // them and looks back for them
+  const int per = (nb + threads - 1) / threads;
+  const int lo = tid * per < nb ? tid * per : nb;
+  const int hi = lo + per < nb ? lo + per : nb;
 
   if (tid == 0)
     s_tile[0] = lookback ? (int)atomicAdd((unsigned int*)status, 1u)
@@ -172,70 +214,76 @@ __global__ void __launch_bounds__(kMaxThreads, ITEMS <= 16 ? 2 : 1)
       key[r] = i < valid_n ? keys[start + i] : 0u;
   }
 
-  // rank within the warp: warp-running count + rank among equal lanes
-  int slot[ITEMS];
+  // count: one shared atomic a key into the warp's row (the compiler
+  // aggregates a warp's increments of one address, so a digit most keys
+  // share costs no more). Whole tiles, all but the last, skip the bounds.
   int* mine = s_wc + warp * nb;
+  const bool whole = valid_n == tile_elems;
+  auto count = [&](auto whole_tile) {
 #pragma unroll
-  for (int r = 0; r < ITEMS; ++r) {
-    const bool valid = wbase + r * 32 + lane < valid_n;
-    const int d = valid ? (int)((key[r] >> shift) & mask) : nb;
-    const unsigned peers = __match_any_sync(kFull, d);
-    const int before = valid ? mine[d] : 0;
-    slot[r] = before + __popc(peers & lt);
-    __syncwarp();
-    if (valid && (peers & lt) == 0) mine[d] = before + __popc(peers);
-    __syncwarp();
-  }
+    for (int r = 0; r < ITEMS; ++r)
+      if (decltype(whole_tile)::value || wbase + r * 32 + lane < valid_n)
+        atomicAdd(&mine[(key[r] >> shift) & mask], 1);
+  };
+  if (whole) count(std::true_type{});
+  else count(std::false_type{});
   __syncthreads();
 
-  // per digit: exclusive scan over warps, the tile's count
-  for (int d = tid; d < nb; d += threads) {
-    int run = 0;
-    for (int w = 0; w < warps; ++w) {
-      const int c = s_wc[w * nb + d];
-      s_wc[w * nb + d] = run;
-      run += c;
-    }
-    s_cnt[d] = run;
-  }
-  __syncthreads();
-
-  // publish the tile's counts: INCLUSIVE for tile 0, else PARTIAL
-  if (lookback) {
-    for (int d = tid; d < nb; d += threads)
-      store_status(&tiles[t * nb + d],
-                   (t == 0 ? kInclusive : kPartial) | (unsigned)s_cnt[d]);
-  }
-
-  // exclusive scan over digits: where each digit's run starts in the tile
+  // per digit (a thread's run of digits): the tile's count, published at
+  // once (INCLUSIVE for tile 0, else PARTIAL), and each warp's count before
+  // it; then a scan over digits makes each warp's entry the slot of its
+  // first key of that digit
   {
-    const int per = (nb + threads - 1) / threads;
-    const int lo = tid * per < nb ? tid * per : nb;
-    const int hi = lo + per < nb ? lo + per : nb;
     long long sum = 0;
-    for (int d = lo; d < hi; ++d) sum += s_cnt[d];
+    for (int d = lo; d < hi; ++d) {
+      int run = 0;
+      for (int w = 0; w < warps; ++w) {
+        const int c = s_wc[w * nb + d];
+        s_wc[w * nb + d] = run;
+        run += c;
+      }
+      s_cnt[d] = run;
+      if (lookback)
+        store_status(&tiles[t * nb + d],
+                     (t == 0 ? kInclusive : kPartial) | (unsigned)run);
+      sum += run;
+    }
     long long run = block_inclusive_scan(sum, s_scan) - sum;
     for (int d = lo; d < hi; ++d) {
       s_dstart[d] = (int)run;
+      for (int w = 0; w < warps; ++w) s_wc[w * nb + d] += (int)run;
       run += s_cnt[d];
     }
   }
   __syncthreads();
 
-  // each key's slot in the digit-sorted tile; the keys (plane 0 of the
-  // first group, unless it is an 8-byte column) and every slot's digit go
-  // to shared memory now
+  // rank: in each round the peers' highest lane takes their slots from the
+  // warp's entry of the digit with one shared atomic and hands the first
+  // to them; the keys (plane 0 of the first group, unless it is an 8-byte
+  // column) and every slot's digit go to shared memory now
   const bool keys_held = lookback && !(PAIRED && (p.wide & 1u));
+  int slot[ITEMS];
+  auto rank = [&](auto whole_tile) {
+    constexpr bool kWhole = decltype(whole_tile)::value;
 #pragma unroll
-  for (int r = 0; r < ITEMS; ++r) {
-    const bool valid = wbase + r * 32 + lane < valid_n;
-    const int d = (int)((key[r] >> shift) & mask);
-    slot[r] = valid ? s_dstart[d] + s_wc[warp * nb + d] + slot[r] : -1;
-    if (valid) {
-      if (keys_held) s_buf[slot[r]] = key[r];
-      s_dig[slot[r]] = (uint8_t)d;
+    for (int r = 0; r < ITEMS; ++r) {
+      const bool valid = kWhole || wbase + r * 32 + lane < valid_n;
+      const uint32_t d = (key[r] >> shift) & mask;
+      unsigned peers = match_digit(d);
+      if (!kWhole) peers &= __ballot_sync(kFull, valid);
+      const int leader = 31 - __clz(peers);
+      int first = 0;
+      if (valid && lane == leader) first = atomicAdd(&mine[d], __popc(peers));
+      first = __shfl_sync(kFull, first, leader);
+      slot[r] = valid ? first + __popc(peers & lt) : -1;
+      if (valid) {
+        if (keys_held) s_buf[slot[r]] = key[r];
+        s_dig[slot[r]] = (uint8_t)d;
+      }
     }
-  }
+  };
+  if (whole) rank(std::true_type{});
+  else rank(std::false_type{});
   // the next plane's values, loaded ahead of the lookback and of each
   // store so that their latency overlaps them (an 8-byte column: the words
   // of rounds [0, ITEMS / 2), two registers each)
@@ -260,8 +308,10 @@ __global__ void __launch_bounds__(kMaxThreads, ITEMS <= 16 ? 2 : 1)
   if (!keys_held) prefetch(0);
   else if (p.n > 1) prefetch(1);
 
-  // the tile's global offset per digit
-  for (int d = tid; d < nb; d += threads) {
+  // the tile's global offset per digit, for the digits whose counts this
+  // thread published: the INCLUSIVE word follows the PARTIAL one in its
+  // program order, so no fence is needed (a word carries all it tells)
+  for (int d = lo; d < hi; ++d) {
     long long excl = 0;
     if (lookback) {
       // walk back kWindow tiles at a time: their words load together
@@ -280,11 +330,9 @@ __global__ void __launch_bounds__(kMaxThreads, ITEMS <= 16 ? 2 : 1)
           done = (w[i] & kInclusive) != 0;
         }
       }
-      if (t > 0) {
-        __threadfence();
+      if (t > 0)
         store_status(&tiles[t * nb + d],
                      kInclusive | (unsigned long long)(excl + s_cnt[d]));
-      }
     } else {
       excl = (long long)(load_status(&tiles[t * nb + d]) & kValue) - s_cnt[d];
     }

@@ -38,14 +38,15 @@ def stage_bytes(n: int, planes: int) -> int:
 def stage_smem_bytes(cfg: config_lib.SortConfig, width: int,
                      paired: bool = False) -> int:
     """Shared memory of one block of the kernel, which the launch gives it
-    (``csrc/stage.cu`` lays it out and traps if it is short): int64 offsets
-    and a scan buffer, the tile's values (4 B a key; 8 B in a pass with an
-    8-byte column, ``paired``) and digits (1 B), the per-warp digit counts
-    and the digits' counts and starts."""
-    tile, nb = cfg.tile_elems, 1 << width
-    slot = 8 if paired else 4
-    return (nb * 8 + 32 * 8 + tile * slot
-            + (cfg.block_threads // 32) * nb * 4 + nb * 8 + 16 + tile)
+    (``csrc/stage.cu`` lays it out in this order and traps if it is short):
+    the digits' int64 global offsets, the block scan's 32 int64 words, the
+    tile's values (4 B a key; 8 B in a pass with an 8-byte column,
+    ``paired``), each warp's per-digit counts (then its slots), the digits'
+    counts and starts, the tile index (4 ints) and the tile's digits
+    (1 B a key)."""
+    tile, nb, warps = cfg.tile_elems, 1 << width, cfg.block_threads // 32
+    return (8 * nb + 8 * 32 + (8 if paired else 4) * tile + 4 * warps * nb
+            + 4 * nb + 4 * nb + 4 * 4 + tile)
 
 
 def stage_scratch(n: int, cfg: config_lib.SortConfig,

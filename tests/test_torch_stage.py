@@ -167,6 +167,36 @@ def test_stage_tiles_fit_shared_memory(threads, items):
         assert 5 * cfg.tile_elems < smem <= tstage.config_lib.SMEM_BYTES
 
 
+@pytest.mark.parametrize("n", [1 << 24, 1 << 28])
+def test_stage_status_words_cost_a_quarter_byte_a_row(n):
+    # the preset's lookback words (8 B per digit per tile) bound the keys
+    # cell's peak: at most 0.25 B a row over its 12 B of columns
+    cfg = tstage.config_lib.preset()
+    assert cfg.tile_elems == 8192
+    _, words = tstage.stage_scratch(n, cfg, cfg.radix_bits)
+    assert words * 8 / n <= 0.25 + 8 / n
+
+
+# csrc/stage.cu's shared-memory layout, region by region in its order:
+# global offsets (int64 a digit), the block scan (32 int64), the tile's
+# values (4 B a key, 8 B paired), the warps' per-digit counts (int), the
+# digits' counts and starts (int), the tile index (4 int), the digits (u8)
+def _layout_bytes(threads, items, width, paired):
+    nb, tile = 1 << width, threads * items
+    return sum([nb * 8, 32 * 8, tile * (8 if paired else 4),
+                (threads // 32) * nb * 4, nb * 4, nb * 4, 4 * 4, tile])
+
+
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("width", [2, 4, 8])
+@pytest.mark.parametrize("threads,items", [(256, 32), (512, 16), (32, 4)])
+def test_stage_smem_bytes_is_the_layouts_sum(threads, items, width, paired):
+    cfg = tstage.config_lib.SortConfig(block_threads=threads,
+                                       items_per_thread=items)
+    assert (tstage.stage_smem_bytes(cfg, width, paired=paired)
+            == _layout_bytes(threads, items, width, paired))
+
+
 @pytest.mark.parametrize("kw", [dict(block_threads=1024),
                                 dict(block_threads=544),
                                 dict(block_threads=48),
