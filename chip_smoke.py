@@ -35,7 +35,9 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      SCAN_F32_TOL of its segment's sum of |x|, at 2^24, around one tile, over
      many tiles, with values and flags at offsets 1-3, without flags (bit for
      bit the same as all-zero flags), and three runs of one 2^24 input give
-     the same bits (float32 sums with and without heads, int32 sums); the
+     the same bits (float32 sums with and without heads, int32 sums); its
+     int64 and uint64 instances bit for bit at 2^24 and 2^28 rows, with and
+     without heads, at element phases 0 and 1, on values near +-2^63; the
      network's tile kernel (sort and merge modes) and cross kernel, alone and
      as whole network sorts and merges, against the plain network bit for
      bit (1-4 planes, n_cmp 1, 2, 3, -1, -2 and all-compare, 2^10..2^28 rows,
@@ -1124,7 +1126,7 @@ def phase_scan_kernel(gen: torch.Generator) -> dict:
     # differ), and no flags (a null pointer) against all-zero flags
     from cuda.radixsort_tpu_torch.kernels import scan as kscan
 
-    tile = kscan.TILE
+    tile = kscan.TILE_BYTES // 4
     offsets = [(0, 0), (1, 1), (2, 3), (3, 0), (0, 2)]
     sizes = (1, 5, tile - 1, tile, tile + 1, 37 * tile + 5)
     for n in sizes:
@@ -1175,8 +1177,67 @@ def phase_scan_kernel(gen: torch.Generator) -> dict:
         f"same bits (float32 sum without and with 1% heads, int32 sum); max "
         f"abs err {errs['exact']} (integers, min/max), {errs['f32_sum']} "
         f"(float32 sums, within {SCAN_F32_TOL} of the segment's sum of |x|)")
+    phase_scan_wide(gen)
     torch.cuda.empty_cache()
     return errs
+
+
+def _scan_wide_case(values, flags, op) -> None:
+    """segmented_scan of 8-byte values on the card against its plain
+    version, bit for bit."""
+    from cuda.radixsort_tpu_torch.kernels import scan as kscan
+
+    got = kscan.segmented_scan(values, flags, op)
+    torch.cuda.synchronize()
+    want = kscan.segmented_scan_plain(values, flags, op)
+    bad = int((sv(got) != sv(want)).sum())
+    expect(bad == 0, f"segmented_scan {op} {values.dtype} n={values.numel()} "
+           f"phase {values.data_ptr() % 16 // 8} heads "
+           f"{flags is not None}: {bad} rows differ from the plain version")
+
+
+def phase_scan_wide(gen: torch.Generator) -> None:
+    """The 8-byte instances (int64, uint64) of the scan kernel against the
+    plain version, bit for bit: sum/min/max at 2^24 and 2^28 rows, with 1%
+    heads and without flags, as views at element phase 0 and 1 of a 16-B
+    boundary, on values near +-2^63 (bits 56-62 set to the sign bit), so
+    that sums wrap at every few rows; then sizes around one 2048-row tile
+    and over many, at element offsets 0-3."""
+    from cuda.radixsort_tpu_torch.kernels import scan as kscan
+
+    top = torch.full((), 0x7F << 56, dtype=torch.int64, device="cuda")
+    n_cases = 0
+    for n in (N_KEYS, N_PAIRS):
+        heads = torch.rand(n, device="cuda", generator=gen) < 0.01
+        for phase in (0, 1):
+            bits = rand_bits(n + phase, torch.int64, gen)
+            near = torch.where(bits >= 0, bits | top, bits & ~top)
+            del bits
+            for dtype in (torch.int64, torch.uint64):
+                values = near.view(dtype)[phase:]
+                for op in ("sum", "min", "max"):
+                    for flags in (heads, None):
+                        _scan_wide_case(values, flags, op)
+                        n_cases += 1
+            del near, values
+            torch.cuda.empty_cache()
+        del heads
+    tile = kscan.TILE_BYTES // 8
+    sizes = (1, 5, tile - 1, tile, tile + 1, 37 * tile + 5)
+    for n in sizes:
+        for dtype in (torch.int64, torch.uint64):
+            for v_off, f_off in ((0, 0), (1, 1), (1, 3), (2, 2), (3, 0)):
+                values = rand_bits(n + v_off, dtype, gen)[v_off:]
+                flags = (torch.rand(n + f_off, device="cuda", generator=gen)
+                         < 0.05)[f_off:]
+                for op in ("sum", "min", "max"):
+                    _scan_wide_case(values, flags, op)
+                    _scan_wide_case(values, None, op)
+                    n_cases += 2
+    log(f"[kernels] segmented_scan 8-byte == plain bit for bit on {n_cases} "
+        f"cases (sum/min/max x int64/uint64 at 2^24 and 2^28 rows, element "
+        f"phases 0 and 1, 1% heads and no flags, values near +-2^63; n = "
+        f"{sizes} at element offsets 0-3)")
 
 
 def oracle_fk_join(bk, bv, pk):

@@ -1,37 +1,48 @@
-// Inclusive segmented scan of i32 / u32 / f32 values under sum, min or max,
-// restarting at every head flag (position 0 is always a head).
+// Inclusive segmented scan of i32 / u32 / f32 and i64 / u64 values under
+// sum, min or max, restarting at every head flag (position 0 is always a
+// head).
 //
 // Replaces: cuda/radixsort_tpu/kernels/scan.py, segmented_scan_pallas (body
 // _sscan_kernel). The TPU kernel carries the running value from one grid
 // step to the next in SMEM, because that grid runs in order; blocks here run
 // in any order, so each tile's carry-in comes from a decoupled lookback over
 // the tiles before it (CUB agent/agent_scan_by_key.cuh ConsumeTile, tile
-// state agent/single_pass_scan_operators.cuh).
+// state agent/single_pass_scan_operators.cuh). The 8-byte instances go past
+// the TPU kernel, which takes 32-bit values.
 //
-// Bound on this card: device memory. The function reads 4 B of value and
-// 1 B of flag and writes 4 B per row (8 B without flags): 151 MB at 2^24
-// rows, about 45 us at 3.35 TB/s. This kernel reads every row once and
-// writes it once, in one launch (plus one memset of the tile states).
+// Bound on this card: device memory. The function reads S B of value and
+// 1 B of flag and writes S B per row (2 S B without flags), S = 4 or 8:
+// 151 MB at 2^24 rows of 4 B, about 45 us at 3.35 TB/s (285 MB, 85 us, of
+// 8 B). This kernel reads every row once and writes it once, in one launch
+// (plus one memset of the tile states).
 //
-// Design: one block per tile of 4096 rows (256 threads x 16 rows), taken in
-// order from an atomic counter, so every earlier tile's block is already
-// running and a lookback cannot wait on a block that never got an SM.
-//   1. Load. A warp owns 512 consecutive rows as 4 chunks of 128; a thread
-//      loads 4 rows of a chunk as one aligned 16-B vector of values and one
-//      4-B word of flags, all 4 chunks before any arithmetic. Rows are
-//      counted from the 16-B boundary at or before the values' first row,
-//      so a view at any offset loads aligned vectors; rows before the first
-//      and after the last are masked (heads of value 0, never stored). The
-//      output is allocated with the values' 16-B phase; flags of another
-//      phase are read as two aligned words and funnel-shifted.
-//   2. Reduce. A thread scans its 4 rows, a warp scans its lanes' pairs
-//      with shuffles chunk by chunk, and thread 0 joins the warps' pairs.
-//      Every pair is (value, has-head, holds-a-value) under the segmented
-//      operator (a,fa) + (b,fb) = (fb ? b : a o b, fa | fb).
-//   3. Publish the tile's status as one 64-bit store: 32 value bits, a
+// Design: one block per tile of 16 KiB of values (256 threads x 4 vectors of
+// 16 B: 4096 rows of 4 B, 2048 of 8 B), taken in order from an atomic
+// counter, so every earlier tile's block is already running and a lookback
+// cannot wait on a block that never got an SM. Four blocks an SM for every
+// value type (at most 64 registers): a 4096-row tile of 8-B values took 104
+// registers, ran two blocks an SM and reached 35-38% of its bound, the
+// 2048-row tile 49-54%.
+//   1. Load. A warp owns 2 KiB of consecutive rows as 4 chunks of one 16-B
+//      vector a lane (4 rows of 4 B or 2 rows of 8 B); a thread loads each
+//      chunk's aligned vector of values and the word of its flags, all
+//      chunks before any arithmetic. Rows are counted from the 16-B
+//      boundary at or before the values' first row, so a view at any offset
+//      loads aligned vectors; rows before the first and after the last are
+//      masked (heads of value 0, never stored). The output is allocated
+//      with the values' 16-B phase; flags of another phase are read as two
+//      aligned words and funnel-shifted.
+//   2. Reduce. A thread scans its chunk's rows, a warp scans its lanes'
+//      pairs with shuffles chunk by chunk, and thread 0 joins the warps'
+//      pairs. Every pair is (value, has-head, holds-a-value) under the
+//      segmented operator (a,fa) + (b,fb) = (fb ? b : a o b, fa | fb).
+//   3. Publish the tile's status as one store: the value's bits, a
 //      has-head bit and AGGREGATE / INCLUSIVE bits, so a reader never sees
-//      a flag without its value. A tile holding a head publishes INCLUSIVE
-//      at once: its aggregate already starts at its last head.
+//      a flag without its value. 4-B values: one 64-bit word, 32 value bits
+//      and the flags above them. 8-B values: one 16-B word, the value and
+//      the flags, stored and loaded as one vector (CUB's TxnWord for 8-byte
+//      T). A tile holding a head publishes INCLUSIVE at once: its aggregate
+//      already starts at its last head.
 //   4. Lookback (warp 0, only if the tile's first row is not a head): lane
 //      i reads the word of tile t-1-i; the warp waits until every word up to
 //      the nearest INCLUSIVE one is published, else keeps the window's
@@ -45,8 +56,9 @@
 //   5. Each thread joins the carry, its warp's prefix and its chunk prefix
 //      into its rows and stores them as aligned vectors: each row written
 //      once.
-// Offsets are int64. i32 sums wrap (they are added as u32); f32 min/max
-// propagate NaN as jnp.minimum/maximum do (fminf/fmaxf would drop it).
+// Offsets are int64. Integer sums wrap (they are added as unsigned); f32
+// min/max propagate NaN as jnp.minimum/maximum do (fminf/fmaxf would drop
+// it).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,24 +69,35 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunks = 4;                  // 16-B vectors of values per thread
-constexpr int kTile = kThreads * 4 * kChunks;  // keep in step with kernels/scan.py
+constexpr int kChunks = 4;  // 16-B vectors of values per thread
+constexpr int kTileBytes = kThreads * kChunks * 16;  // keep in step with
+                                                     // kernels/scan.py
 constexpr int kLookMax = 256;  // aggregates a lookback steps over before it
                                // waits on its last window
 constexpr unsigned kFull = 0xffffffffu;
 
-constexpr unsigned long long kValueBits = 0xffffffffull;
-constexpr unsigned long long kHead = 1ull << 32;
-constexpr unsigned long long kAggregate = 1ull << 33;
-constexpr unsigned long long kInclusive = 1ull << 34;
+// a tile status's flag bits
+constexpr unsigned kHead = 1u;
+constexpr unsigned kAggregate = 2u;
+constexpr unsigned kInclusive = 4u;
 
 enum { kSum = 0, kMin = 1, kMax = 2 };
+
+// The bits of a value, and the rows of one 16-B vector.
+template <typename T>
+using Bits = typename std::conditional<sizeof(T) == 8, unsigned long long,
+                                       uint32_t>::type;
+
+template <typename T>
+constexpr int kVec = 16 / sizeof(T);
 
 template <typename T, int OP>
 __device__ __forceinline__ T apply(T a, T b) {  // a is the earlier operand
   if constexpr (OP == kSum) {
     if constexpr (std::is_same<T, int>::value)
       return (int)((unsigned)a + (unsigned)b);
+    else if constexpr (std::is_same<T, long long>::value)
+      return (long long)((unsigned long long)a + (unsigned long long)b);
     else
       return a + b;
   } else {
@@ -90,20 +113,99 @@ __device__ __forceinline__ T apply(T a, T b) {  // a is the earlier operand
 }
 
 template <typename T>
-__device__ __forceinline__ uint32_t to_bits(T v) {
+__device__ __forceinline__ Bits<T> to_bits(T v) {
   if constexpr (std::is_same<T, float>::value)
     return __float_as_uint(v);
   else
-    return (uint32_t)v;
+    return (Bits<T>)v;
 }
 
 template <typename T>
-__device__ __forceinline__ T from_bits(uint32_t b) {
+__device__ __forceinline__ T from_bits(Bits<T> b) {
   if constexpr (std::is_same<T, float>::value)
     return __uint_as_float(b);
   else
     return (T)b;
 }
+
+// The rows of a 16-B vector, and back.
+template <typename T>
+__device__ __forceinline__ void unpack(uint4 q, T (&x)[kVec<T>]) {
+  if constexpr (sizeof(T) == 4) {
+    x[0] = from_bits<T>(q.x);
+    x[1] = from_bits<T>(q.y);
+    x[2] = from_bits<T>(q.z);
+    x[3] = from_bits<T>(q.w);
+  } else {
+    x[0] = from_bits<T>((unsigned long long)q.x |
+                        ((unsigned long long)q.y << 32));
+    x[1] = from_bits<T>((unsigned long long)q.z |
+                        ((unsigned long long)q.w << 32));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 pack(const T (&y)[kVec<T>]) {
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(to_bits(y[0]), to_bits(y[1]), to_bits(y[2]),
+                      to_bits(y[3]));
+  } else {
+    const unsigned long long a = to_bits(y[0]), b = to_bits(y[1]);
+    return make_uint4((unsigned)a, (unsigned)(a >> 32), (unsigned)b,
+                      (unsigned)(b >> 32));
+  }
+}
+
+// The tiles' status words in the scratch after the tile counter (word 0).
+// 4-B values: one 64-bit word a tile, the value's 32 bits below the flags.
+template <typename T, bool kWide = sizeof(T) == 8>
+struct TileStatus {
+  unsigned long long* words;
+
+  __device__ explicit TileStatus(unsigned long long* scratch)
+      : words(scratch + 1) {}
+
+  __device__ __forceinline__ void store(int64_t t, Bits<T> v,
+                                        unsigned flags) const {
+    *(volatile unsigned long long*)(words + t) =
+        ((unsigned long long)flags << 32) | v;
+  }
+
+  __device__ __forceinline__ void load(int64_t t, Bits<T>& v,
+                                       unsigned& flags) const {
+    const unsigned long long w = *(const volatile unsigned long long*)(words + t);
+    v = (uint32_t)w;
+    flags = (unsigned)(w >> 32);
+  }
+};
+
+// 8-B values: one 16-B word a tile (the value, then the flags), from the
+// first 16-B boundary after the tile counter, stored and loaded as one
+// vector so that the flags never arrive without their value.
+template <typename T>
+struct TileStatus<T, true> {
+  unsigned long long* words;
+
+  __device__ explicit TileStatus(unsigned long long* scratch)
+      : words(scratch + 2) {}
+
+  __device__ __forceinline__ void store(int64_t t, Bits<T> v,
+                                        unsigned flags) const {
+    asm volatile("st.volatile.v2.u64 [%0], {%1, %2};" ::"l"(words + 2 * t),
+                 "l"(v), "l"((unsigned long long)flags)
+                 : "memory");
+  }
+
+  __device__ __forceinline__ void load(int64_t t, Bits<T>& v,
+                                       unsigned& flags) const {
+    unsigned long long f;
+    asm volatile("ld.volatile.v2.u64 {%0, %1}, [%2];"
+                 : "=l"(v), "=l"(f)
+                 : "l"(words + 2 * t)
+                 : "memory");
+    flags = (unsigned)f;
+  }
+};
 
 // A run's pair: its running value v, whether it holds a head (f), and
 // whether it holds any row at all (h; an empty run is the neutral element).
@@ -145,16 +247,6 @@ __device__ __forceinline__ Acc<T> warp_inclusive(Acc<T> a) {
   return a;
 }
 
-__device__ __forceinline__ unsigned long long load_status(
-    const unsigned long long* p) {
-  return *(const volatile unsigned long long*)p;
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p,
-                                             unsigned long long v) {
-  *(volatile unsigned long long*)p = v;
-}
-
 // The 4-B word at a (4-B aligned), or 0 if it holds none of [lo, hi): a word
 // that holds a byte of the array lies in that byte's page, so it is safe to
 // read; the bytes outside the array are masked by the caller.
@@ -163,67 +255,74 @@ __device__ __forceinline__ uint32_t load_word(uintptr_t a, uintptr_t lo,
   return (a + 4 > lo && a < hi) ? __ldg((const uint32_t*)a) : 0u;
 }
 
-// The flag bytes of 4 rows from byte address a (any phase) as a 4-bit head
-// mask, or 0 for flags == nullptr.
+// The flag bytes of R <= 4 rows from byte address a (any phase) as an R-bit
+// head mask, or 0 for flags == nullptr.
+template <int R>
 __device__ __forceinline__ unsigned load_heads(const uint8_t* flags,
                                                uintptr_t a, uintptr_t lo,
                                                uintptr_t hi) {
   if (flags == nullptr) return 0u;
   const uintptr_t wa = a & ~(uintptr_t)3;
+  const unsigned skip = (unsigned)(a - wa);
   uint32_t w = load_word(wa, lo, hi);
-  if (a != wa)
-    w = __funnelshift_r(w, load_word(wa + 4, lo, hi), 8 * (unsigned)(a - wa));
+  if (skip + R > 4)
+    w = __funnelshift_r(w, load_word(wa + 4, lo, hi), 8 * skip);
+  else
+    w >>= 8 * skip;
   unsigned m = 0;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) m |= ((w >> (8 * j)) & 0xffu) ? 1u << j : 0u;
+  for (int j = 0; j < R; ++j) m |= ((w >> (8 * j)) & 0xffu) ? 1u << j : 0u;
   return m;
 }
 
 // vals, out: 16-B aligned, row r of the caller's arrays at r + phase; flags:
 // the caller's flags (row r at flags + r) or nullptr; scratch: word 0 the
-// tile counter, then one status word per tile, all zero at launch.
+// tile counter, then the tiles' status words (TileStatus), all zero at
+// launch.
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads, 4)
     scan_single_pass(const T* __restrict__ vals, const uint8_t* flags,
                      int64_t n, int phase, T* __restrict__ out,
                      unsigned long long* scratch) {
+  constexpr int V = kVec<T>;
+  constexpr int kTileRows = kTileBytes / sizeof(T);
+  constexpr int kLaneStride = 32 * V;  // rows from one chunk to the next
+  using B = Bits<T>;
   __shared__ Acc<T> s_warp[kWarps];
-  __shared__ uint32_t s_look[kLookMax + 32];  // the last window's too
+  __shared__ B s_look[kLookMax + 32];  // the last window's too
   __shared__ int64_t s_tile;
-  __shared__ uint32_t s_carry;
+  __shared__ B s_carry;
   __shared__ bool s_has_carry;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  unsigned long long* status = scratch + 1;
+  const TileStatus<T> status(scratch);
   if (tid == 0) s_tile = (int64_t)atomicAdd((unsigned int*)scratch, 1u);
   __syncthreads();
   const int64_t t = s_tile;
 
-  // 1. load: chunk k of this thread holds rows first + 128 k + {0..3}
-  const int64_t first = t * kTile + warp * (32 * 4 * kChunks) + 4 * lane;
+  // 1. load: chunk k of this thread holds rows first + 32 V k + {0..V-1}
+  const int64_t first =
+      t * kTileRows + warp * (kLaneStride * kChunks) + V * lane;
   const int64_t end = n + phase;  // rows [phase, end) are the caller's
   const uintptr_t f_lo = (uintptr_t)flags, f_hi = f_lo + (uintptr_t)n;
-  T x[kChunks][4];
+  T x[kChunks][V];
   unsigned heads[kChunks];
 #pragma unroll
   for (int k = 0; k < kChunks; ++k) {
-    const int64_t r = first + 128 * k;
+    const int64_t r = first + kLaneStride * k;
     uint4 q = make_uint4(0u, 0u, 0u, 0u);
-    if (r + 4 > phase && r < end) q = __ldg((const uint4*)(vals + r));
-    x[k][0] = from_bits<T>(q.x);
-    x[k][1] = from_bits<T>(q.y);
-    x[k][2] = from_bits<T>(q.z);
-    x[k][3] = from_bits<T>(q.w);
-    heads[k] = load_heads(flags, f_lo + (uintptr_t)(r - phase), f_lo, f_hi);
+    if (r + V > phase && r < end) q = __ldg((const uint4*)(vals + r));
+    unpack<T>(q, x[k]);
+    heads[k] = load_heads<V>(flags, f_lo + (uintptr_t)(r - phase), f_lo, f_hi);
   }
   // rows outside [phase, end) are heads of value 0; the caller's row 0 is
   // a head
 #pragma unroll
   for (int k = 0; k < kChunks; ++k) {
-    const int64_t r = first + 128 * k;
-    if (r >= phase && r + 4 <= end && r != phase) continue;
+    const int64_t r = first + kLaneStride * k;
+    if (r >= phase && r + V <= end && r != phase) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < V; ++j) {
       if (r + j <= phase || r + j >= end) heads[k] |= 1u << j;
       if (r + j < phase || r + j >= end) x[k][j] = T(0);
     }
@@ -235,10 +334,10 @@ __global__ void __launch_bounds__(kThreads, 4)
 #pragma unroll
   for (int k = 0; k < kChunks; ++k) {
 #pragma unroll
-    for (int j = 1; j < 4; ++j)
+    for (int j = 1; j < V; ++j)
       if (!((heads[k] >> j) & 1u)) x[k][j] = apply<T, OP>(x[k][j - 1], x[k][j]);
     const Acc<T> inc =
-        warp_inclusive<T, OP>(Acc<T>{x[k][3], heads[k] != 0, true});
+        warp_inclusive<T, OP>(Acc<T>{x[k][V - 1], heads[k] != 0, true});
     Acc<T> excl = shfl_up(inc, 1);
     if (lane == 0) excl.h = false;
     pre[k] = join<T, OP>(run, excl);
@@ -251,27 +350,28 @@ __global__ void __launch_bounds__(kThreads, 4)
   if (warp == 0) {
     Acc<T> tile = s_warp[0];
     for (int w = 1; w < kWarps; ++w) tile = join<T, OP>(tile, s_warp[w]);
-    const uint32_t tile_bits = to_bits(tile.v);
     if (lane == 0)
-      store_status(&status[t], tile.f ? kInclusive | kHead | tile_bits
-                                      : kAggregate | tile_bits);
+      status.store(t, to_bits(tile.v),
+                   tile.f ? kInclusive | kHead : kAggregate);
     // the tile's first row is thread 0's, chunk 0, row 0
     const bool need_carry = t > 0 && !(__shfl_sync(kFull, heads[0], 0) & 1u);
     if (need_carry) {
       int64_t top = t - 1;
       int depth = 0;
-      uint32_t carry = 0;
+      B carry = 0;
       while (true) {
         const int64_t u = top - lane;
-        const unsigned long long w = u >= 0 ? load_status(&status[u]) : 0ull;
+        B v = 0;
+        unsigned fl = 0;
+        if (u >= 0) status.load(u, v, fl);
         const unsigned stop =
-            __ballot_sync(kFull, (w & (kInclusive | kHead)) != 0);
+            __ballot_sync(kFull, (fl & (kInclusive | kHead)) != 0);
         const unsigned upto = stop ? ((stop & (0u - stop)) << 1) - 1u : kFull;
-        if (__ballot_sync(kFull, w == 0) & upto) continue;  // not published yet
+        if (__ballot_sync(kFull, fl == 0) & upto) continue;  // not published yet
         if (stop) {
           const int at = __ffs(stop) - 1;
-          if (lane < at) s_look[depth + lane] = (uint32_t)(w & kValueBits);
-          carry = __shfl_sync(kFull, (uint32_t)(w & kValueBits), at);
+          if (lane < at) s_look[depth + lane] = v;
+          carry = __shfl_sync(kFull, v, at);
           __syncwarp();
           if (lane == 0) {  // left fold, oldest first
             T c = from_bits<T>(carry);
@@ -283,17 +383,15 @@ __global__ void __launch_bounds__(kThreads, 4)
           break;
         }
         if (depth + 32 <= kLookMax) {  // a window of aggregates: step back
-          s_look[depth + lane] = (uint32_t)(w & kValueBits);
+          s_look[depth + lane] = v;
           depth += 32;
           top -= 32;
         }
       }
       if (lane == 0) {
-        if (!tile.f) {
-          store_status(&status[t], kInclusive |
-                                       to_bits(apply<T, OP>(from_bits<T>(carry),
-                                                            tile.v)));
-        }
+        if (!tile.f)
+          status.store(t, to_bits(apply<T, OP>(from_bits<T>(carry), tile.v)),
+                       kInclusive);
         s_carry = carry;
       }
     }
@@ -307,20 +405,19 @@ __global__ void __launch_bounds__(kThreads, 4)
 #pragma unroll
   for (int k = 0; k < kChunks; ++k) {
     const Acc<T> p = join<T, OP>(base, pre[k]);
-    T y[4];
+    T y[V];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < V; ++j) {
       // rows after a head of this thread's own chunk take no prefix
       const bool own_head = (heads[k] & ((2u << j) - 1u)) != 0;
       y[j] = (own_head || !p.h) ? x[k][j] : apply<T, OP>(p.v, x[k][j]);
     }
-    const int64_t r = first + 128 * k;
-    if (r >= phase && r + 4 <= end) {
-      *(uint4*)(out + r) = make_uint4(to_bits(y[0]), to_bits(y[1]),
-                                      to_bits(y[2]), to_bits(y[3]));
+    const int64_t r = first + kLaneStride * k;
+    if (r >= phase && r + V <= end) {
+      *(uint4*)(out + r) = pack<T>(y);
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < V; ++j)
         if (r + j >= phase && r + j < end) out[r + j] = y[j];
     }
   }
@@ -354,26 +451,33 @@ cudaError_t launch_op(int op, const void* vals, const void* flags, void* out,
 
 }  // namespace
 
-// values, out: n rows of dtype 0 = int32, 1 = uint32, 2 = float32, 4-B
-// aligned, out at the same offset from a 16-B boundary as values (the
-// wrapper allocates it so) and not aliasing it; flags: n bytes, non-zero at a
-// head, or nullptr (no heads but row 0); op: 0 = sum, 1 = min, 2 = max.
-// scratch: at least 1 + ceil((n + 3) / 4096) 64-bit words, zeroed here (one
-// memset per call).
+// values, out: n rows of dtype 0 = int32, 1 = uint32, 2 = float32, 3 = int64,
+// 4 = uint64, aligned to their size, out at the same offset from a 16-B
+// boundary as values (the wrapper allocates it so) and not aliasing it;
+// flags: n bytes, non-zero at a head, or nullptr (no heads but row 0); op:
+// 0 = sum, 1 = min, 2 = max. scratch: 16-B aligned, at least
+// 1 + ceil((n + 3) / 4096) 64-bit words for 4-B values and
+// 2 + 2 ceil((n + 1) / 2048) for 8-B values, zeroed here (one memset per
+// call).
 extern "C" int rs_segmented_scan(const void* values, const void* flags,
                                  void* out, int64_t n, int dtype, int op,
                                  void* scratch, int64_t scratch_words,
                                  void* stream) {
   if (n == 0) return 0;
+  if (dtype < 0 || dtype > 4) return (int)cudaErrorInvalidValue;
+  const int size = dtype >= 3 ? 8 : 4;
   const uintptr_t v = (uintptr_t)values, o = (uintptr_t)out;
-  if ((v & 3) || (v & 15) != (o & 15)) return (int)cudaErrorInvalidValue;
-  const int phase = (int)((v & 15) >> 2);
-  const int64_t n_tiles = (n + phase + kTile - 1) / kTile;
-  if (scratch_words < 1 + n_tiles) return (int)cudaErrorInvalidValue;
+  if ((v & (size - 1)) || (v & 15) != (o & 15) || ((uintptr_t)scratch & 15))
+    return (int)cudaErrorInvalidValue;
+  const int phase = (int)((v & 15) / size);
+  const int64_t tile_rows = kTileBytes / size;
+  const int64_t n_tiles = (n + phase + tile_rows - 1) / tile_rows;
+  const int64_t words = size == 8 ? 2 + 2 * n_tiles : 1 + n_tiles;
+  if (scratch_words < words) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* st = (unsigned long long*)scratch;
   cudaError_t err = cudaMemsetAsync(
-      st, 0, (size_t)(1 + n_tiles) * sizeof(unsigned long long), s);
+      st, 0, (size_t)words * sizeof(unsigned long long), s);
   if (err != cudaSuccess) return (int)err;
   switch (dtype) {
     case 0:
@@ -382,6 +486,11 @@ extern "C" int rs_segmented_scan(const void* values, const void* flags,
       return (int)launch_op<unsigned>(op, values, flags, out, n, phase, n_tiles, st, s);
     case 2:
       return (int)launch_op<float>(op, values, flags, out, n, phase, n_tiles, st, s);
+    case 3:
+      return (int)launch_op<long long>(op, values, flags, out, n, phase, n_tiles, st, s);
+    case 4:
+      return (int)launch_op<unsigned long long>(op, values, flags, out, n, phase,
+                                                n_tiles, st, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -484,8 +484,8 @@ def _exclusive_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 class DeviceScan:
-    """Parity: cub::DeviceScan. Sums of int32, uint32 and float32 run on the
-    scan kernel (integer sums wrap, bit for bit; a float sum folds left to
+    """Parity: cub::DeviceScan. Sums of int32, uint32, float32, int64 and
+    uint64 run on the scan kernel (integer sums wrap, bit for bit; a float sum folds left to
     right, so it differs from another summation order in the last bits);
     custom operators run the doubling scan of ``ops/scan.py``."""
 

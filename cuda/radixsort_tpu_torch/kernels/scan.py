@@ -1,17 +1,19 @@
 """Inclusive segmented scan: a prefix scan that restarts at every head flag.
 
 Counterpart of ``cuda/radixsort_tpu/kernels/scan.py::segmented_scan_pallas``:
-named ``sum``/``min``/``max`` over int32, uint32 and float32 values, with
+named ``sum``/``min``/``max`` over int32, uint32 and float32 values, and
+over int64 and uint64 values, which the Pallas kernel does not take, with
 bool (or uint8) head flags, or none (an unsegmented scan); position 0 is
 always a head. On a CUDA tensor the wrapper launches the hand-written
 single-pass kernel in ``csrc/scan.cu``; on a CPU tensor it runs
-:func:`segmented_scan_plain`. There is no other route.
+:func:`segmented_scan_plain`. There is no other route. float64 is not a
+kernel dtype: its scans stay on torch's routes (``ops/scan.py``).
 
-int32 and uint32 sums wrap, as in JAX. float32 min/max propagate NaN. A
-float32 sum on the card associates differently from the plain version (a
-flagged doubling, as JAX's CPU path); the two agree within 1e-5 of the
-segment's running sum of |x|, and the card gives the same bits on every run.
-Integer results and min/max agree bit for bit.
+Integer sums wrap, as in JAX. float32 min/max propagate NaN. A float32 sum
+on the card associates differently from the plain version (a flagged
+doubling, as JAX's CPU path); the two agree within 1e-5 of the segment's
+running sum of |x|, and the card gives the same bits on every run. Integer
+results and min/max agree bit for bit.
 """
 
 from __future__ import annotations
@@ -22,10 +24,20 @@ from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.utils import build
 
 OPS = ("sum", "min", "max")
-DTYPES = (torch.int32, torch.uint32, torch.float32)
-TILE = 4096  # rows per block: kTile in csrc/scan.cu
+DTYPES = (torch.int32, torch.uint32, torch.float32, torch.int64,
+          torch.uint64)
+TILE_BYTES = 16384  # values per block: kTileBytes in csrc/scan.cu (4096
+#                     rows of 4 B, 2048 of 8 B)
 
 LAUNCHES = 0  # calls of segmented_scan that launched the scan kernel
+BYTES = 0  # scan_bytes of every segmented_scan of at least one row
+
+
+def scan_bytes(n: int, itemsize: int, flags: bool) -> int:
+    """The least memory traffic of one scan of ``n`` rows: each value read
+    once and written once, and each flag byte read once where there are
+    flags."""
+    return n * (2 * itemsize + int(flags))
 
 
 def _check(values: torch.Tensor, head_flags: torch.Tensor | None,
@@ -116,21 +128,26 @@ def segmented_scan_plain(values: torch.Tensor,
     return segmented_doubling(values, flags, lambda a, b: combine(op, a, b))
 
 
-_DTYPE_CODE = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
+_DTYPE_CODE = {torch.int32: 0, torch.uint32: 1, torch.float32: 2,
+               torch.int64: 3, torch.uint64: 4}
 
 
 def segmented_scan(values: torch.Tensor, head_flags: torch.Tensor | None,
                    op: str = "sum") -> torch.Tensor:
-    """Inclusive segmented scan of 1-D int32/uint32/float32 ``values`` under
-    ``op`` ('sum', 'min' or 'max'), restarting where ``head_flags`` (bool
-    or uint8, same length) is set; position 0 is always a head.
-    ``head_flags=None`` scans with no other head, without reading flags.
-    Returns a new tensor of the values' dtype. On the card it lies at the
-    values' offset from a 16-B boundary, so the kernel loads and stores
-    aligned vectors even for a view such as ``x[1:]``."""
-    global LAUNCHES
+    """Inclusive segmented scan of 1-D int32/uint32/float32/int64/uint64
+    ``values`` under ``op`` ('sum', 'min' or 'max'), restarting where
+    ``head_flags`` (bool or uint8, same length) is set; position 0 is always
+    a head. ``head_flags=None`` scans with no other head, without reading
+    flags. Returns a new tensor of the values' dtype. On the card it lies at
+    the values' offset from a 16-B boundary, so the kernel loads and stores
+    aligned vectors even for a view such as ``x[1:]``. Each scan of at least
+    one row adds its :func:`scan_bytes` to ``BYTES``, on either route."""
+    global LAUNCHES, BYTES
     if values.device.type == "cpu":
-        return segmented_scan_plain(values, head_flags, op)
+        out = segmented_scan_plain(values, head_flags, op)
+        BYTES += scan_bytes(values.numel(), values.element_size(),
+                            head_flags is not None)
+        return out
     if values.device.type != "cuda":
         raise ValueError(f"unsupported device {values.device}")
     _check(values, head_flags, op)
@@ -139,16 +156,19 @@ def segmented_scan(values: torch.Tensor, head_flags: torch.Tensor | None,
     if n == 0:
         return torch.empty_like(values)
     dev = values.device
-    phase = values.data_ptr() % 16 // 4
+    size = values.element_size()
+    phase = values.data_ptr() % 16 // size
     out = torch.empty(n + phase, dtype=values.dtype, device=dev)
     if phase:
         out = out[phase:]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        # the tile counter and one status word per tile (the values' offset
-        # from a 16-B boundary adds up to 3 rows); the entry point zeroes it
-        scratch = build.stream_scratch("scan", dev, stream,
-                                       1 + -(-(n + 3) // TILE), torch.int64)
+        # the tile counter and a status word per tile: 8 B for 4-B values,
+        # 16 B (from word 2) for 8-B values; the values' offset from a 16-B
+        # boundary adds up to 16 B. The entry point zeroes it.
+        tiles = -(-(n * size + 16) // TILE_BYTES)
+        scratch = build.stream_scratch("scan", dev, stream, 2 + 2 * tiles,
+                                       torch.int64)
         err = lib.rs_segmented_scan(
             values.data_ptr(),
             None if head_flags is None else head_flags.data_ptr(),
@@ -156,4 +176,5 @@ def segmented_scan(values: torch.Tensor, head_flags: torch.Tensor | None,
             scratch.data_ptr(), scratch.numel(), stream)
     build.check(err, "segmented_scan")
     LAUNCHES += 1
+    BYTES += scan_bytes(n, size, head_flags is not None)
     return out

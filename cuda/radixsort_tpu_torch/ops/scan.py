@@ -7,9 +7,11 @@ segments are maximal runs of consecutive keys equal under ``equality_op``
 
 Routes, by ``engine=`` (JAX's three values) and then by operator and dtype
 (no size gate):
-  * 'auto': named sum/min/max over int32, uint32 and float32 take the
-    segmented-scan kernel (``kernels/scan.py``; its plain version on a CPU
-    tensor), the rest the routes of 'xla';
+  * 'auto': named sum/min/max over int32, uint32, float32, int64 and
+    uint64 take the segmented-scan kernel (``kernels/scan.py``; its plain
+    version on a CPU tensor), the rest the routes of 'xla'. The 8-byte
+    integers go past JAX, whose kernel takes 32-bit values and whose
+    'auto' scans them by its XLA routes; the results are the same bits;
   * 'pallas': the kernel, for those ops and dtypes only (another op raises
     JAX's ValueError, another dtype a TypeError);
   * 'xla': the routes that are not the kernel, on the tensor's own device:
@@ -96,8 +98,8 @@ def _head_flags(keys, equality_op):
 def plain_scan_fast(x: torch.Tensor, op: str) -> torch.Tensor:
     """Unsegmented inclusive scan for the named ops 'max', 'min' and 'sum'
     (same dtype, sums wrap): the segmented-scan kernel with no heads for
-    int32/uint32/float32 (it reads no flags), torch's cumulative ops for
-    other dtypes."""
+    int32/uint32/float32/int64/uint64 (it reads no flags; JAX's kernel takes
+    no 8-byte values), torch's cumulative ops for other dtypes."""
     if x.dim() == 1 and x.dtype in kscan.DTYPES:
         return kscan.segmented_scan(x.contiguous(), None, op)
     if op == "sum":

@@ -94,7 +94,7 @@ def test_plain_rejects_bad_input():
     with pytest.raises(ValueError):
         kscan.segmented_scan(v, f, "prod")
     with pytest.raises(TypeError):
-        kscan.segmented_scan(v.to(torch.int64), f, "sum")
+        kscan.segmented_scan(v.to(torch.int16), f, "sum")
     with pytest.raises(TypeError):
         kscan.segmented_scan(v, f.to(torch.int32), "sum")
     with pytest.raises(ValueError):
@@ -209,6 +209,44 @@ def test_null_flags_is_all_zero_flags(op, dtype):
             np.asarray(jscan.plain_scan_fast(jnp.asarray(to_numpy(v)), op)))
     with pytest.raises(ValueError):
         kscan.segmented_scan(v.reshape(-1, 1), None, op)
+
+
+def _numpy_scan(v: np.ndarray, flags: np.ndarray | None, op: str):
+    """Inclusive segmented scan by numpy's accumulate, segment by segment
+    (integer sums wrap in the values' dtype)."""
+    ufunc = {"sum": np.add, "min": np.minimum, "max": np.maximum}[op]
+    heads = np.zeros(len(v), bool) if flags is None else flags.copy()
+    heads[0] = True
+    starts = list(np.flatnonzero(heads)) + [len(v)]
+    out = np.empty_like(v)
+    for a, b in zip(starts[:-1], starts[1:]):
+        out[a:b] = ufunc.accumulate(v[a:b])
+    return out
+
+
+@pytest.mark.parametrize("phase", [0, 1])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", [np.int64, np.uint64],
+                         ids=["int64", "uint64"])
+def test_8byte_scan_matches_numpy(dtype, op, phase):
+    # values over the whole range, so that sums wrap at once, as a view at
+    # ``phase`` rows past the start of its storage; with heads, and with no
+    # flags (one segment)
+    rng = np.random.default_rng([len(op), np.dtype(dtype).num, phase])
+    info = np.iinfo(dtype)
+    v = rng.integers(info.min, info.max, size=N + phase, dtype=dtype,
+                     endpoint=True)
+    v[phase] = info.max  # a sum that wraps at its first step
+    v[phase + 1] = info.max
+    flags = rng.random(N) < 0.02
+    flags[4096] = True
+    tv = from_numpy(v, device="cpu")[phase:]
+    for f in (flags, None):
+        got = kscan.segmented_scan(
+            tv, None if f is None else from_numpy(f, device="cpu"), op)
+        assert got.dtype == tv.dtype
+        np.testing.assert_array_equal(to_numpy(got),
+                                      _numpy_scan(v[phase:], f, op))
 
 
 def _kernel_carry(t, words, window, look_max):
