@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # from the root of the repository
     python3 chip_smoke.py --profile    # also: phase 7 below
     python3 chip_smoke.py --parent DIR # also: phase 9 below
+    python3 chip_smoke.py --only-scan  # phases 1, 2 and the scan's part of 3
 
 Phases, each of which fails loudly (non-zero exit, no result line):
   1. device: a CUDA card must be present; its name and power limit are printed;
@@ -37,7 +38,14 @@ Phases, each of which fails loudly (non-zero exit, no result line):
      bit the same as all-zero flags), and three runs of one 2^24 input give
      the same bits (float32 sums with and without heads, int32 sums); its
      int64 and uint64 instances bit for bit at 2^24 and 2^28 rows, with and
-     without heads, at element phases 0 and 1, on values near +-2^63; the
+     without heads, at element phases 0 and 1, on values near +-2^63; its
+     reverse direction (segmented_scan_reverse) on every dtype x op against
+     its plain version and against flip -> forward kernel -> flip (bit for
+     bit but float32 sums, within SCAN_F32_TOL of the rest of the segment's
+     |x|, and bit for bit at reversed phase 0) at 2^24 + 1/2/3 and 2^28 + 3
+     rows, around one tile and over many, at offsets 0-3, every row a head,
+     only the first and no flags, then timed beside the forward pass at
+     2^27 + 2^24 int64 rows; the
      network's tile kernel (sort and merge modes) and cross kernel, alone and
      as whole network sorts and merges, against the plain network bit for
      bit (1-4 planes, n_cmp 1, 2, 3, -1, -2 and all-compare, 2^10..2^28 rows,
@@ -1179,6 +1187,7 @@ def phase_scan_kernel(gen: torch.Generator) -> dict:
         f"(float32 sums, within {SCAN_F32_TOL} of the segment's sum of |x|)")
     phase_scan_wide(gen)
     torch.cuda.empty_cache()
+    errs["reverse_f32_sum"] = phase_scan_reverse(gen)["f32_sum"]
     return errs
 
 
@@ -1238,6 +1247,163 @@ def phase_scan_wide(gen: torch.Generator) -> None:
         f"cases (sum/min/max x int64/uint64 at 2^24 and 2^28 rows, element "
         f"phases 0 and 1, 1% heads and no flags, values near +-2^63; n = "
         f"{sizes} at element offsets 0-3)")
+
+
+def _rev_abs_scale(values, flags) -> torch.Tensor:
+    """The sum of |x| over each row and the rest of its segment, in float64:
+    the reverse scan's float32-sum tolerance scale."""
+    from cuda.radixsort_tpu_torch.kernels import scan as kscan
+
+    n = values.numel()
+    heads = torch.zeros(n, dtype=torch.bool, device=values.device)
+    if flags is not None:
+        heads[:-1] = flags[1:].to(torch.bool)
+    heads = torch.flip(heads, [0])
+    heads[0] = True
+    a = torch.flip(values.double().abs(), [0])
+    return torch.flip(kscan.segmented_doubling(a, heads, torch.add), [0])
+
+
+def _scan_reverse_case(values, flags, op) -> float:
+    """segmented_scan_reverse on the card against its plain version (the
+    flip form over the plain scan) and against flip -> forward kernel ->
+    flip. Integers and float32 min/max bit for bit against both (NaN rows
+    by position against the plain version); a float32 sum within
+    SCAN_F32_TOL of the rest of its segment's |x| against the plain
+    version, and bit for bit against the forward kernel where the reversed
+    rows' phase is 0, the flipped copy's. Returns the largest difference of
+    a float32 sum (0 for the exact cases)."""
+    from cuda.radixsort_tpu_torch.kernels import scan as kscan
+
+    got = kscan.segmented_scan_reverse(values, flags, op)
+    fwd = kscan._flip_form(kscan.segmented_scan, values, flags, op)
+    torch.cuda.synchronize()
+    want = kscan.segmented_scan_reverse_plain(values, flags, op)
+    n, size = values.numel(), values.element_size()
+    vec = 16 // size
+    phase = (vec - (n + values.data_ptr() % 16 // size) % vec) % vec
+    what = (f"segmented_scan_reverse {op} {values.dtype} n={n} value offset "
+            f"{values.data_ptr() % 16 // size} reversed phase {phase} flags "
+            + ("none" if flags is None else f"offset {flags.data_ptr() % 4}"))
+    f32_sum = (values.dtype, op) == (torch.float32, "sum")
+    if not f32_sum or phase == 0:
+        bad = int((sv(got) != sv(fwd)).sum())
+        expect(bad == 0, f"{what}: {bad} rows differ from flip -> forward "
+               "kernel -> flip")
+    if values.dtype != torch.float32:
+        bad = int((sv(got) != sv(want)).sum())
+        expect(bad == 0, f"{what}: {bad} rows differ from the plain version")
+        return 0.0
+    g_nan, w_nan = torch.isnan(got), torch.isnan(want)
+    expect(torch.equal(g_nan, w_nan), f"{what}: NaN at other rows")
+    diff = torch.where(w_nan, 0.0, (got.double() - want.double()).abs())
+    if f32_sum:
+        ok = w_nan | (diff <= SCAN_F32_TOL * _rev_abs_scale(values, flags))
+    else:
+        ok = w_nan | (sv(got) == sv(want))
+    expect(bool(ok.all()), f"{what}: max err {float(diff.max())} beyond its "
+           "tolerance")
+    return float(diff.max()) if f32_sum else 0.0
+
+
+def phase_scan_reverse(gen: torch.Generator) -> dict:
+    """The scan kernel's reverse direction (the group-by's totals at each
+    group's first row) against its plain version and against flip ->
+    forward kernel -> flip, on every kernel dtype x sum/min/max: 2^24 + 1,
+    2 and 3 rows (each length mod 4) as views at element offsets 0, 1 and
+    3 with flags at byte offsets 0, 2 and 1, 1% heads and NaNs among the
+    floats; 2^28 + 3 rows at offset 1; lengths around one tile and over
+    many at offsets 0-3; every row a head, only the first, and no flags.
+    Then the reverse pass beside the forward pass and the flip form at
+    2^27 + 2^24 int64 rows, 1% heads."""
+    from cuda.radixsort_tpu_torch.kernels import scan as kscan
+    from cuda.radixsort_tpu_torch.utils.profiling import device_time_ms
+
+    dtypes = (torch.int32, torch.uint32, torch.float32, torch.int64,
+              torch.uint64)
+
+    def make(n, dtype, off, nan=False):
+        if dtype == torch.float32:
+            v = torch.randn(n + off, device="cuda", generator=gen) * 100
+            if nan:
+                v[torch.randint(0, n + off, (64,), device="cuda",
+                                generator=gen)] = float("nan")
+            return v[off:]
+        return rand_bits(n + off, dtype, gen)[off:]
+
+    def heads(n, off, rate):
+        return (torch.rand(n + off, device="cuda", generator=gen)
+                < rate)[off:]
+
+    f32_err, n_cases = 0.0, 0
+
+    def case(values, flags, op):
+        nonlocal f32_err, n_cases
+        f32_err = max(f32_err, _scan_reverse_case(values, flags, op))
+        n_cases += 1
+
+    for n, v_off, f_off in ((N_KEYS + 1, 0, 0), (N_KEYS + 2, 1, 2),
+                            (N_KEYS + 3, 3, 1)):
+        flags = heads(n, f_off, 0.01)
+        for dtype in dtypes:
+            values = make(n, dtype, v_off, nan=True)
+            for op in ("sum", "min", "max"):
+                case(values, flags, op)
+        del flags, values
+    n = N_PAIRS + 3
+    flags = heads(n, 1, 0.01)
+    for dtype, op in ((torch.int64, "sum"), (torch.uint64, "max"),
+                      (torch.int32, "sum"), (torch.float32, "min"),
+                      (torch.float32, "sum")):
+        values = make(n, dtype, 1)
+        case(values, flags, op)
+        if dtype == torch.int64:
+            case(values, None, op)
+        del values
+    del flags
+    torch.cuda.empty_cache()
+    for dtype in dtypes:
+        tile = kscan.TILE_BYTES // dtype.itemsize
+        for n in (1, 2, 3, 5, tile - 1, tile, tile + 1, 37 * tile + 5):
+            for v_off, f_off in ((0, 0), (1, 1), (2, 3), (3, 2)):
+                values = make(n, dtype, v_off)
+                flags = heads(n, f_off, 0.05)
+                for op in ("sum", "min", "max"):
+                    case(values, flags, op)
+        n = 3 * tile + 7
+        values = make(n, dtype, 1)
+        for flags in (torch.ones(n, dtype=torch.bool, device="cuda"),
+                      torch.zeros(n, dtype=torch.bool, device="cuda"), None):
+            for op in ("sum", "min", "max"):
+                case(values, flags, op)
+    log(f"[kernels] segmented_scan_reverse == plain and == flip -> forward "
+        f"kernel -> flip on {n_cases} cases (sum/min/max x int32/uint32/"
+        f"float32/int64/uint64 at 2^24 + 1/2/3 with 1% heads and NaNs, "
+        f"2^28 + 3, lengths 1 to 37 tiles + 5 at offsets 0-3, every row a "
+        f"head, only the first, no flags); integers and min/max bit for bit, "
+        f"float32 sums bit for bit against the forward kernel at reversed "
+        f"phase 0, max err {f32_err} against the plain version (within "
+        f"{SCAN_F32_TOL} of the segment's sum of |x|)")
+
+    n = N_PROBE + N_BUILD
+    values = rand_bits(n, torch.int64, gen)
+    flags = heads(n, 0, 0.01)
+    t = {"reverse": device_time_ms(
+             lambda: kscan.segmented_scan_reverse(values, flags, "sum"),
+             runs=RUNS),
+         "forward": device_time_ms(
+             lambda: kscan.segmented_scan(values, flags, "sum"), runs=RUNS),
+         "flip_form": device_time_ms(
+             lambda: kscan._flip_form(kscan.segmented_scan, values, flags,
+                                      "sum"), runs=RUNS)}
+    bound, _ = bound_ms(kscan.scan_bytes(n, 8, True))
+    log(f"[times] segmented_scan 2^27+2^24 int64 sum, 1% heads: reverse "
+        f"pass {t['reverse']:.4f} ms, forward pass {t['forward']:.4f} ms, "
+        f"flip -> forward -> flip (the group-by's route before the reverse "
+        f"pass) {t['flip_form']:.4f} ms; bound {bound:.4f} ms")
+    del values, flags
+    torch.cuda.empty_cache()
+    return {"f32_sum": f32_err, **{f"{k}_ms": v for k, v in t.items()}}
 
 
 def oracle_fk_join(bk, bv, pk):
@@ -3823,6 +3989,12 @@ def main() -> int:
     kind, smi = phase_device()
     load_port()
     phase_build()
+    if "--only-scan" in args:  # the scan kernel's phases alone
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        errs = phase_scan_kernel(gen)
+        log(json.dumps({"ok": True, "segmented_scan": errs}))
+        return 0
     if "--only-distributed" in args:  # phase 6d alone
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)

@@ -59,6 +59,25 @@
 // Offsets are int64. Integer sums wrap (they are added as unsigned); f32
 // min/max propagate NaN as jnp.minimum/maximum do (fminf/fmaxf would drop
 // it).
+//
+// Reverse direction (REV, a template parameter: the forward instances are
+// the code above): the same scan of the rows taken from the last to the
+// first, so row i gets the fold of rows [i, end of i's segment], and a
+// segment ends at row i where flags[i + 1] is set or i = n - 1: the flags
+// are the segments' first rows, as for the forward scan. It equals
+// flip -> forward scan -> flip without its copies. Reversed row r is
+// the caller's row n-1-r. The steps above run unchanged on the reversed
+// rows: tiles claimed from the end of the array, the lookback over them in
+// claim order. The phase is the array end's: the reversed rows are counted
+// from the 16-B boundary at or after the values' end (span, a multiple of a
+// vector's rows), so reversed vector k is the memory vector that ends span -
+// V k rows past the values' aligned start, read and stored as one vector
+// with its rows swapped. A reversed row's head is its caller row's end
+// flag, flags[i + 1], read at a one-byte offset by load_heads with the
+// bits swapped; reversed row 0 (the caller's last row) is always a head,
+// and the flags of rows past it are masked. Same association as the
+// forward kernel on the flipped values at the same phase (bit for bit
+// where that phase is 0, as for a fresh flipped copy).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -153,6 +172,17 @@ __device__ __forceinline__ uint4 pack(const T (&y)[kVec<T>]) {
     const unsigned long long a = to_bits(y[0]), b = to_bits(y[1]);
     return make_uint4((unsigned)a, (unsigned)(a >> 32), (unsigned)b,
                       (unsigned)(b >> 32));
+  }
+}
+
+// A vector's rows in the other order.
+template <typename T>
+__device__ __forceinline__ void swap_rows(T (&x)[kVec<T>]) {
+#pragma unroll
+  for (int j = 0; j < kVec<T> / 2; ++j) {
+    const T v = x[j];
+    x[j] = x[kVec<T> - 1 - j];
+    x[kVec<T> - 1 - j] = v;
   }
 }
 
@@ -275,11 +305,12 @@ __device__ __forceinline__ unsigned load_heads(const uint8_t* flags,
   return m;
 }
 
-// vals, out: 16-B aligned, row r of the caller's arrays at r + phase; flags:
-// the caller's flags (row r at flags + r) or nullptr; scratch: word 0 the
-// tile counter, then the tiles' status words (TileStatus), all zero at
-// launch.
-template <typename T, int OP>
+// vals, out: 16-B aligned, row r of the caller's arrays at r + phase (REV:
+// reversed row r at span - 1 - r, span the least multiple of a vector's
+// rows at or above n + phase); flags: the caller's flags (row r at
+// flags + r) or nullptr; scratch: word 0 the tile counter, then the tiles'
+// status words (TileStatus), all zero at launch.
+template <typename T, int OP, bool REV>
 __global__ void __launch_bounds__(kThreads, 4)
     scan_single_pass(const T* __restrict__ vals, const uint8_t* flags,
                      int64_t n, int phase, T* __restrict__ out,
@@ -304,6 +335,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int64_t first =
       t * kTileRows + warp * (kLaneStride * kChunks) + V * lane;
   const int64_t end = n + phase;  // rows [phase, end) are the caller's
+  const int64_t span = (end + V - 1) / V * V;  // REV: row r at span - 1 - r
   const uintptr_t f_lo = (uintptr_t)flags, f_hi = f_lo + (uintptr_t)n;
   T x[kChunks][V];
   unsigned heads[kChunks];
@@ -311,9 +343,21 @@ __global__ void __launch_bounds__(kThreads, 4)
   for (int k = 0; k < kChunks; ++k) {
     const int64_t r = first + kLaneStride * k;
     uint4 q = make_uint4(0u, 0u, 0u, 0u);
-    if (r + V > phase && r < end) q = __ldg((const uint4*)(vals + r));
-    unpack<T>(q, x[k]);
-    heads[k] = load_heads<V>(flags, f_lo + (uintptr_t)(r - phase), f_lo, f_hi);
+    if constexpr (REV) {
+      // the memory vector of rows span-V-r .. span-1-r; the head of reversed
+      // row r + j is flags[n + phase - r - j], lowest address at j = V - 1
+      if (r + V > phase && r < end)
+        q = __ldg((const uint4*)(vals + (span - V - r)));
+      unpack<T>(q, x[k]);
+      swap_rows<T>(x[k]);
+      heads[k] = __brev(load_heads<V>(
+                     flags, f_lo + (uintptr_t)(n + phase - r - (V - 1)), f_lo,
+                     f_hi)) >> (32 - V);
+    } else {
+      if (r + V > phase && r < end) q = __ldg((const uint4*)(vals + r));
+      unpack<T>(q, x[k]);
+      heads[k] = load_heads<V>(flags, f_lo + (uintptr_t)(r - phase), f_lo, f_hi);
+    }
   }
   // rows outside [phase, end) are heads of value 0; the caller's row 0 is
   // a head
@@ -413,7 +457,16 @@ __global__ void __launch_bounds__(kThreads, 4)
       y[j] = (own_head || !p.h) ? x[k][j] : apply<T, OP>(p.v, x[k][j]);
     }
     const int64_t r = first + kLaneStride * k;
-    if (r >= phase && r + V <= end) {
+    if constexpr (REV) {
+      if (r >= phase && r + V <= end) {
+        swap_rows<T>(y);
+        *(uint4*)(out + (span - V - r)) = pack<T>(y);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (r + j >= phase && r + j < end) out[span - 1 - r - j] = y[j];
+      }
+    } else if (r >= phase && r + V <= end) {
       *(uint4*)(out + r) = pack<T>(y);
     } else {
 #pragma unroll
@@ -423,30 +476,43 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-template <typename T, int OP>
+template <typename T, int OP, bool REV>
 cudaError_t launch(const void* vals, const void* flags, void* out, int64_t n,
                    int phase, int64_t n_tiles, unsigned long long* scratch,
                    cudaStream_t s) {
   const uintptr_t mask = ~(uintptr_t)15;
-  scan_single_pass<T, OP><<<(unsigned)n_tiles, kThreads, 0, s>>>(
+  scan_single_pass<T, OP, REV><<<(unsigned)n_tiles, kThreads, 0, s>>>(
       (const T*)((uintptr_t)vals & mask), (const uint8_t*)flags, n, phase,
       (T*)((uintptr_t)out & mask), scratch);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool REV>
 cudaError_t launch_op(int op, const void* vals, const void* flags, void* out,
                       int64_t n, int phase, int64_t n_tiles,
                       unsigned long long* scratch, cudaStream_t s) {
   switch (op) {
     case kSum:
-      return launch<T, kSum>(vals, flags, out, n, phase, n_tiles, scratch, s);
+      return launch<T, kSum, REV>(vals, flags, out, n, phase, n_tiles, scratch,
+                                  s);
     case kMin:
-      return launch<T, kMin>(vals, flags, out, n, phase, n_tiles, scratch, s);
+      return launch<T, kMin, REV>(vals, flags, out, n, phase, n_tiles, scratch,
+                                  s);
     case kMax:
-      return launch<T, kMax>(vals, flags, out, n, phase, n_tiles, scratch, s);
+      return launch<T, kMax, REV>(vals, flags, out, n, phase, n_tiles, scratch,
+                                  s);
   }
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_dir(int reverse, int op, const void* vals, const void* flags,
+                       void* out, int64_t n, int phase, int64_t n_tiles,
+                       unsigned long long* scratch, cudaStream_t s) {
+  return reverse ? launch_op<T, true>(op, vals, flags, out, n, phase, n_tiles,
+                                      scratch, s)
+                 : launch_op<T, false>(op, vals, flags, out, n, phase, n_tiles,
+                                       scratch, s);
 }
 
 }  // namespace
@@ -455,21 +521,27 @@ cudaError_t launch_op(int op, const void* vals, const void* flags, void* out,
 // 4 = uint64, aligned to their size, out at the same offset from a 16-B
 // boundary as values (the wrapper allocates it so) and not aliasing it;
 // flags: n bytes, non-zero at a head, or nullptr (no heads but row 0); op:
-// 0 = sum, 1 = min, 2 = max. scratch: 16-B aligned, at least
+// 0 = sum, 1 = min, 2 = max; reverse: 0 = forward, 1 = from the last row to
+// the first (row i's segment ends before the next head). scratch: 16-B
+// aligned, at least
 // 1 + ceil((n + 3) / 4096) 64-bit words for 4-B values and
 // 2 + 2 ceil((n + 1) / 2048) for 8-B values, zeroed here (one memset per
 // call).
 extern "C" int rs_segmented_scan(const void* values, const void* flags,
                                  void* out, int64_t n, int dtype, int op,
-                                 void* scratch, int64_t scratch_words,
-                                 void* stream) {
+                                 int reverse, void* scratch,
+                                 int64_t scratch_words, void* stream) {
   if (n == 0) return 0;
   if (dtype < 0 || dtype > 4) return (int)cudaErrorInvalidValue;
   const int size = dtype >= 3 ? 8 : 4;
   const uintptr_t v = (uintptr_t)values, o = (uintptr_t)out;
   if ((v & (size - 1)) || (v & 15) != (o & 15) || ((uintptr_t)scratch & 15))
     return (int)cudaErrorInvalidValue;
-  const int phase = (int)((v & 15) / size);
+  const int vec = 16 / size;
+  // the forward rows' phase is the values' start's, the reversed rows' their
+  // end's: from the last row to the next 16-B boundary
+  int phase = (int)((v & 15) / size);
+  if (reverse) phase = (int)((vec - (n + phase) % vec) % vec);
   const int64_t tile_rows = kTileBytes / size;
   const int64_t n_tiles = (n + phase + tile_rows - 1) / tile_rows;
   const int64_t words = size == 8 ? 2 + 2 * n_tiles : 1 + n_tiles;
@@ -481,16 +553,20 @@ extern "C" int rs_segmented_scan(const void* values, const void* flags,
   if (err != cudaSuccess) return (int)err;
   switch (dtype) {
     case 0:
-      return (int)launch_op<int>(op, values, flags, out, n, phase, n_tiles, st, s);
+      return (int)launch_dir<int>(reverse, op, values, flags, out, n, phase,
+                                  n_tiles, st, s);
     case 1:
-      return (int)launch_op<unsigned>(op, values, flags, out, n, phase, n_tiles, st, s);
+      return (int)launch_dir<unsigned>(reverse, op, values, flags, out, n, phase,
+                                       n_tiles, st, s);
     case 2:
-      return (int)launch_op<float>(op, values, flags, out, n, phase, n_tiles, st, s);
+      return (int)launch_dir<float>(reverse, op, values, flags, out, n, phase,
+                                    n_tiles, st, s);
     case 3:
-      return (int)launch_op<long long>(op, values, flags, out, n, phase, n_tiles, st, s);
+      return (int)launch_dir<long long>(reverse, op, values, flags, out, n, phase,
+                                        n_tiles, st, s);
     case 4:
-      return (int)launch_op<unsigned long long>(op, values, flags, out, n, phase,
-                                                n_tiles, st, s);
+      return (int)launch_dir<unsigned long long>(reverse, op, values, flags, out,
+                                                 n, phase, n_tiles, st, s);
   }
   return (int)cudaErrorInvalidValue;
 }

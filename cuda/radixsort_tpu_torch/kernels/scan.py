@@ -9,6 +9,12 @@ single-pass kernel in ``csrc/scan.cu``; on a CPU tensor it runs
 :func:`segmented_scan_plain`. There is no other route. float64 is not a
 kernel dtype: its scans stay on torch's routes (``ops/scan.py``).
 
+:func:`segmented_scan_reverse` is the same scan from the last row to the
+first (each row gets the fold of the rest of its segment; the group-by's
+totals at each group's first row): the kernel's reverse direction on the
+card; on the CPU the flip form around :func:`segmented_scan`, the
+arithmetic of :func:`segmented_scan_reverse_plain`.
+
 Integer sums wrap, as in JAX. float32 min/max propagate NaN. A float32 sum
 on the card associates differently from the plain version (a flagged
 doubling, as JAX's CPU path); the two agree within 1e-5 of the segment's
@@ -29,8 +35,8 @@ DTYPES = (torch.int32, torch.uint32, torch.float32, torch.int64,
 TILE_BYTES = 16384  # values per block: kTileBytes in csrc/scan.cu (4096
 #                     rows of 4 B, 2048 of 8 B)
 
-LAUNCHES = 0  # calls of segmented_scan that launched the scan kernel
-BYTES = 0  # scan_bytes of every segmented_scan of at least one row
+LAUNCHES = 0  # calls of either direction that launched the scan kernel
+BYTES = 0  # scan_bytes of every scan of at least one row, either direction
 
 
 def scan_bytes(n: int, itemsize: int, flags: bool) -> int:
@@ -128,6 +134,29 @@ def segmented_scan_plain(values: torch.Tensor,
     return segmented_doubling(values, flags, lambda a, b: combine(op, a, b))
 
 
+def segmented_scan_reverse_plain(values: torch.Tensor,
+                                 head_flags: torch.Tensor | None,
+                                 op: str = "sum") -> torch.Tensor:
+    """Plain PyTorch version of :func:`segmented_scan_reverse`, the flip
+    form: the forward plain scan of the reversed values, restarting at the
+    reversed segment ends."""
+    return _flip_form(segmented_scan_plain, values, head_flags, op)
+
+
+def _flip_form(scan, values, head_flags, op) -> torch.Tensor:
+    """flip -> ``scan`` restarting at the flipped segment ends -> flip."""
+    _check(values, head_flags, op)
+    if values.numel() == 0:
+        return values.clone()
+    ends = None
+    if head_flags is not None:
+        ends = torch.cat([head_flags[1:].to(torch.bool),
+                          torch.ones(1, dtype=torch.bool,
+                                     device=values.device)])
+        ends = torch.flip(ends, [0])
+    return twiddle.flip(scan(twiddle.flip(values), ends, op))
+
+
 _DTYPE_CODE = {torch.int32: 0, torch.uint32: 1, torch.float32: 2,
                torch.int64: 3, torch.uint64: 4}
 
@@ -142,8 +171,30 @@ def segmented_scan(values: torch.Tensor, head_flags: torch.Tensor | None,
     the values' offset from a 16-B boundary, so the kernel loads and stores
     aligned vectors even for a view such as ``x[1:]``. Each scan of at least
     one row adds its :func:`scan_bytes` to ``BYTES``, on either route."""
+    return _scan(values, head_flags, op, reverse=False)
+
+
+def segmented_scan_reverse(values: torch.Tensor,
+                           head_flags: torch.Tensor | None,
+                           op: str = "sum") -> torch.Tensor:
+    """The scan of :func:`segmented_scan` from the last row to the first:
+    out[i] is the fold under ``op`` of rows i to the last row of i's
+    segment, the row before the next set ``head_flags`` entry or n - 1
+    (flags[0] is never read). The same values as flipping the values,
+    scanning them with the flipped segment ends as heads and flipping the
+    result, without the copies: the kernel reads the values, the flags and
+    writes the result once each, as a forward scan does, and counts the
+    same ``BYTES``. Integer results and min/max equal the flip form bit for
+    bit; a float32 sum associates as the forward kernel does on the flipped
+    values (the same tolerance against the plain version)."""
+    return _scan(values, head_flags, op, reverse=True)
+
+
+def _scan(values, head_flags, op, *, reverse: bool) -> torch.Tensor:
     global LAUNCHES, BYTES
     if values.device.type == "cpu":
+        if reverse:  # the flip form around the forward route, which counts
+            return _flip_form(segmented_scan, values, head_flags, op)
         out = segmented_scan_plain(values, head_flags, op)
         BYTES += scan_bytes(values.numel(), values.element_size(),
                             head_flags is not None)
@@ -173,8 +224,8 @@ def segmented_scan(values: torch.Tensor, head_flags: torch.Tensor | None,
             values.data_ptr(),
             None if head_flags is None else head_flags.data_ptr(),
             out.data_ptr(), n, _DTYPE_CODE[values.dtype], OPS.index(op),
-            scratch.data_ptr(), scratch.numel(), stream)
-    build.check(err, "segmented_scan")
+            int(reverse), scratch.data_ptr(), scratch.numel(), stream)
+    build.check(err, "segmented_scan_reverse" if reverse else "segmented_scan")
     LAUNCHES += 1
     BYTES += scan_bytes(n, size, head_flags is not None)
     return out

@@ -7,6 +7,12 @@ row; the first rows are compacted with the filter operator:
   sorted keys -> group starts (neighbour compare) -> reversed segmented
   inclusive scan (each group's total lands on its start row) -> compact.
 
+The reversed scan is one pass of the scan kernel's reverse direction
+(``kernels/scan.py::segmented_scan_reverse``, which reads the group starts
+as they are) for sum/min/max over the kernel's dtypes and for count's end
+positions; other dtypes (float64, the half types) flip their values and the
+segment ends around a forward ``segmented_scan``, as the JAX package does.
+
 Outputs keep their full length: rows [0, count) hold one row per group,
 key-ascending; count is a 0-d int32 tensor on the device.
 """
@@ -17,12 +23,16 @@ import torch
 
 from cuda.radixsort_tpu_torch import config as config_lib
 from cuda.radixsort_tpu_torch import twiddle
+from cuda.radixsort_tpu_torch.kernels import scan as kscan
 from cuda.radixsort_tpu_torch.ops.filter import filter_columns
 from cuda.radixsort_tpu_torch.ops.scan import plain_scan_fast, segmented_scan
 from cuda.radixsort_tpu_torch.ops.sort import sort_pairs, sort_struct
 from cuda.radixsort_tpu_torch.utils.profiling import sync_span, traced
 
 _AGGS = ("sum", "count", "min", "max", "mean", "var", "std")
+
+REDUCED_ROWS = 0  # rows of every per-group reduction (sum, min, max, count)
+ONE_PASS_ROWS = 0  # rows of those that one reverse scan reduced
 
 
 def _mean_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -66,25 +76,31 @@ def _ends_of(is_start: torch.Tensor) -> torch.Tensor:
                       torch.ones(1, dtype=torch.bool, device=is_start.device)])
 
 
-def _segment_end_pos(is_start: torch.Tensor) -> torch.Tensor:
-    """end_pos[i] = last row of i's segment: a running max of the end
-    positions on the reversed axis."""
-    n = is_start.shape[0]
-    pos = torch.arange(n, dtype=torch.int32, device=is_start.device)
-    rev_ends = twiddle.flip(_ends_of(is_start))
-    # pos is the reversed index here
-    filled_rev = plain_scan_fast(torch.where(rev_ends, pos, -1), "max")
-    return (n - 1) - twiddle.flip(filled_rev)
+def _segment_end_pos(is_start: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """end_pos[i] = last row of i's segment: the reverse segmented max of
+    the int32 row positions ``pos``."""
+    global REDUCED_ROWS, ONE_PASS_ROWS
+    REDUCED_ROWS += pos.shape[0]
+    ONE_PASS_ROWS += pos.shape[0]
+    return kscan.segmented_scan_reverse(pos, is_start, "max")
 
 
 def _segmented_total_at_start(values, is_start, agg):
     """out[i] = reduce of i's segment, valid at segment-start rows. count is
-    position arithmetic; sum/min/max are a segmented scan of the reversed
-    rows restarting at the reversed segment ends."""
+    position arithmetic; sum/min/max are a segmented scan from the last row
+    to the first: one reverse pass for the kernel's ops and dtypes, else a
+    forward scan of the reversed rows restarting at the reversed segment
+    ends."""
+    global REDUCED_ROWS, ONE_PASS_ROWS
     if agg == "count":
         n = is_start.shape[0]
         pos = torch.arange(n, dtype=torch.int32, device=is_start.device)
-        return _segment_end_pos(is_start) - pos + 1
+        return _segment_end_pos(is_start, pos) - pos + 1
+    REDUCED_ROWS += values.shape[0]
+    if agg in kscan.OPS and values.dtype in kscan.DTYPES:
+        ONE_PASS_ROWS += values.shape[0]
+        return kscan.segmented_scan_reverse(values.contiguous(), is_start, agg)
     rev_ends = twiddle.flip(_ends_of(is_start))
     return twiddle.flip(segmented_scan(twiddle.flip(values), rev_ends, agg))
 
@@ -256,7 +272,7 @@ def groupby_quantile(keys, values: torch.Tensor, qs=(0.5,), *,
     # the floor/ceil rank are marked and their values carried back to the
     # segment's start row by a reversed segmented max (one mark per segment)
     r = pos - start
-    cnt_row = _segment_end_pos(is_start) - start + 1
+    cnt_row = _segment_end_pos(is_start, pos) - start + 1
     sv = svals.to(md)
     miss = torch.full((), float("-inf"), dtype=md, device=dev)
     qcols = []

@@ -53,9 +53,9 @@ _SIGNATURES = {
     # key_half, gbase, n, shift, width, status, threads, items, smem, stream
     "rs_partition_stage": [_P, _P, _P, _I, _I, _P, _I64, _I, _I, _P, _I, _I,
                            _I64, _P],
-    # values, flags (or NULL), out, n, dtype, op, scratch, scratch words,
-    # stream
-    "rs_segmented_scan": [_P, _P, _P, _I64, _I, _I, _P, _I64, _P],
+    # values, flags (or NULL), out, n, dtype, op, reverse, scratch, scratch
+    # words, stream
+    "rs_segmented_scan": [_P, _P, _P, _I64, _I, _I, _I, _P, _I64, _P],
     # planes (void**), n_planes, n, log_t, log_e, threads, phases (int*),
     # n_phases, net_tile, n_cmp, smem, stream
     "rs_bitonic_tile": [_P, _I, _I64, _I, _I, _I, _P, _I, _I, _I, _I64, _P],

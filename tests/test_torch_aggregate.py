@@ -16,6 +16,8 @@ import cuda.radixsort_tpu as rs
 from cuda.radixsort_tpu.models import flagships as jflag
 import cuda.radixsort_tpu_torch as rt
 from cuda.radixsort_tpu_torch.models import flagships as tflag
+from cuda.radixsort_tpu_torch.ops import aggregate as agg_mod
+from cuda.radixsort_tpu_torch.utils import profiling
 from cuda.radixsort_tpu_torch.utils.convert import from_numpy, to_numpy
 
 N = 3001
@@ -278,3 +280,75 @@ def test_groupby_zipf_flagship_matches_jax():
     for g, w in zip(got, want):
         assert_close(g, w, exact=True)
     assert (to_numpy(args[0]) == 42).mean() > 0.4  # the skew is there
+
+
+def _starts(rng, n, rate):
+    s = rng.random(n) < rate
+    s[0] = True
+    return torch.from_numpy(s)
+
+
+def _old_end_pos(is_start):
+    """The flip form end positions: a running max of the end positions on
+    the reversed axis, as the group-by computed them before the reverse
+    scan."""
+    n = is_start.shape[0]
+    pos = torch.arange(n, dtype=torch.int32)
+    ends = torch.cat([is_start[1:], torch.ones(1, dtype=torch.bool)])
+    filled = torch.cummax(torch.where(torch.flip(ends, [0]), pos, -1), 0).values
+    return (n - 1) - torch.flip(filled, [0])
+
+
+@pytest.mark.parametrize("n", [1, 2, 4095, 4097])
+def test_segment_end_pos_and_count_unchanged(n):
+    rng = np.random.default_rng(n)
+    for rate in (0.0, 0.05, 1.0):
+        is_start = _starts(rng, n, rate)
+        pos = torch.arange(n, dtype=torch.int32)
+        want = _old_end_pos(is_start)
+        got = agg_mod._segment_end_pos(is_start, pos)
+        assert got.dtype == torch.int32
+        assert torch.equal(got, want)
+        cnt = agg_mod._segmented_total_at_start(None, is_start, "count")
+        assert torch.equal(cnt, want - pos + 1)
+
+
+@pytest.mark.parametrize("dtype,agg,one_pass", [
+    (torch.int32, "sum", True), (torch.int64, "sum", True),
+    (torch.uint64, "max", True), (torch.float32, "min", True),
+    (torch.int32, "count", True), (torch.float64, "sum", False),
+    (torch.float64, "max", False), (torch.bfloat16, "max", False)])
+def test_reductions_count_their_rows(monkeypatch, dtype, agg, one_pass):
+    """Each reduction adds its rows to REDUCED_ROWS, and to ONE_PASS_ROWS
+    where one reverse scan made it (no flip, no flag copy, no sync); float64
+    and the half types still take the flip form around a forward scan."""
+    n = 3001
+    rng = np.random.default_rng(3)
+    is_start = _starts(rng, n, 0.03)
+    low = 0 if dtype == torch.uint64 else -50
+    vals = torch.from_numpy(rng.integers(low, low + 100, size=n)).to(dtype)
+    forward = []  # the flip form's forward scans
+    real = agg_mod.segmented_scan
+    monkeypatch.setattr(agg_mod, "segmented_scan",
+                        lambda *a, **k: forward.append(1) or real(*a, **k))
+    reduced, one = agg_mod.REDUCED_ROWS, agg_mod.ONE_PASS_ROWS
+    syncs = profiling.SYNCS
+    got = agg_mod._segmented_total_at_start(vals, is_start, agg)
+    assert agg_mod.REDUCED_ROWS - reduced == n
+    assert agg_mod.ONE_PASS_ROWS - one == (n if one_pass else 0)
+    assert (forward == []) == one_pass
+    assert (profiling.SYNCS == syncs) == one_pass  # the flip form's first head
+    if agg == "count":
+        return
+    # each segment's total at its start row, by numpy, every row
+    v = vals.to(torch.int64).double().numpy()
+    starts = list(np.flatnonzero(is_start.numpy())) + [n]
+    f = {"sum": np.add, "max": np.maximum, "min": np.minimum}[agg]
+    want = np.empty(n)
+    for a, b in zip(starts[:-1], starts[1:]):
+        want[a:b] = f.accumulate(v[a:b][::-1])[::-1]
+    if dtype == torch.uint64:
+        want = want.astype(np.uint64)
+        np.testing.assert_array_equal(to_numpy(got), want)
+    else:
+        np.testing.assert_array_equal(got.double().numpy(), want)

@@ -18,6 +18,7 @@ from hypothesis import strategies as st
 from cuda.radixsort_tpu.kernels.scan import segmented_scan_pallas
 from cuda.radixsort_tpu.ops import scan as jscan
 import cuda.radixsort_tpu_torch as rt
+from cuda.radixsort_tpu_torch import twiddle
 from cuda.radixsort_tpu_torch.kernels import scan as kscan
 from cuda.radixsort_tpu_torch.ops import scan as tscan
 from cuda.radixsort_tpu_torch.utils.convert import from_numpy, to_numpy
@@ -313,3 +314,105 @@ def test_lookback_carry_is_the_left_fold_from_the_last_head(data, geometry):
         h = max(j for j in range(t) if heads[j])
         want = _left_fold(agg[h:t])
         assert np.float32(got).view(np.uint32) == want.view(np.uint32), t
+
+
+def _numpy_reverse_scan(v: np.ndarray, flags: np.ndarray | None, op: str):
+    """The scan from the last row to the first by numpy's accumulate over
+    each segment's rows taken backwards (flags: the segments' first rows;
+    integer sums wrap in the values' dtype)."""
+    ufunc = {"sum": np.add, "min": np.minimum, "max": np.maximum}[op]
+    heads = np.zeros(len(v), bool) if flags is None else flags.copy()
+    heads[0] = True
+    starts = list(np.flatnonzero(heads)) + [len(v)]
+    out = np.empty_like(v)
+    for a, b in zip(starts[:-1], starts[1:]):
+        out[a:b] = ufunc.accumulate(v[a:b][::-1])[::-1]
+    return out
+
+
+def _flip_form(values, flags, op):
+    """flip -> forward scan restarting at the flipped segment ends -> flip:
+    the route the group-by took before the reverse direction."""
+    ends = torch.cat([flags[1:].to(torch.bool), torch.ones(1, dtype=torch.bool)])
+    return twiddle.flip(kscan.segmented_scan(twiddle.flip(values),
+                                             torch.flip(ends, [0]), op))
+
+
+KERNEL_DTYPES = [np.int32, np.uint32, np.float32, np.int64, np.uint64]
+
+
+def _kernel_values(dtype, rng, n):
+    if dtype in (np.int64, np.uint64):
+        info = np.iinfo(dtype)
+        return rng.integers(info.min, info.max, size=n, dtype=dtype,
+                            endpoint=True)
+    return _values(dtype, rng, n, nan=False)
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES,
+                         ids=lambda d: np.dtype(d).name)
+def test_reverse_scan_is_the_flip_form(dtype, op):
+    """The reverse scan against numpy, segment by segment, and against the
+    flip form bit for bit: at lengths around a kernel tile (4096 rows of
+    4 B, 2048 of 8 B) and n = 1; with 2% heads, every row a head and only
+    the first; values at element offsets 0-3 and flags at byte offsets 0-3
+    of their storage."""
+    tile = kscan.TILE_BYTES // np.dtype(dtype).itemsize
+    rng = np.random.default_rng([np.dtype(dtype).num, len(op)])
+    for n, off in ((1, 0), (1, 3), (tile - 1, 1), (tile, 2), (tile + 1, 3),
+                   (3 * tile + 5, 0)):
+        v = _kernel_values(dtype, rng, n + off)
+        tv = from_numpy(v, device="cpu")[off:]
+        v = v[off:]
+        for kind in ("some", "all", "first"):
+            f = {"some": rng.random(n + off) < 0.02,
+                 "all": np.ones(n + off, bool),
+                 "first": np.zeros(n + off, bool)}[kind]
+            tf = from_numpy(f, device="cpu")[off:]
+            f = f[off:]
+            got = kscan.segmented_scan_reverse(tv, tf, op)
+            assert got.dtype == tv.dtype and got.shape == tv.shape
+            what = f"n={n} offset {off} heads {kind}"
+            np.testing.assert_array_equal(to_numpy(got),
+                                          to_numpy(_flip_form(tv, tf, op)),
+                                          err_msg=what)
+            want = _numpy_reverse_scan(v, f, op)
+            if dtype == np.float32 and op == "sum":
+                scale = _numpy_reverse_scan(np.abs(v).astype(np.float64), f,
+                                            "sum")
+                assert (np.abs(to_numpy(got).astype(np.float64) - want)
+                        <= F32_TOL * scale + 1e-30).all(), what
+            else:
+                np.testing.assert_array_equal(to_numpy(got), want,
+                                              err_msg=what)
+
+
+def test_reverse_scan_edges():
+    rng = np.random.default_rng(31)
+    v = from_numpy(_values(np.float32, rng, nan=True), device="cpu")
+    # no flags: one segment, the suffix scan of every row
+    for op in ("sum", "max"):
+        np.testing.assert_array_equal(
+            to_numpy(kscan.segmented_scan_reverse(v, None, op)),
+            to_numpy(twiddle.flip(kscan.segmented_scan(twiddle.flip(v), None,
+                                                       op))))
+    # uint8 flags: any non-zero byte starts a segment; flags[0] is not read
+    f = rng.random(N) < 0.1
+    tf = from_numpy(f, device="cpu").to(torch.uint8) * 5
+    tf[0] = 0
+    i = from_numpy(_values(np.int32, rng), device="cpu")
+    np.testing.assert_array_equal(
+        to_numpy(kscan.segmented_scan_reverse(i, tf, "min")),
+        _numpy_reverse_scan(to_numpy(i), f, "min"))
+    # counted as a forward scan
+    before = kscan.BYTES
+    kscan.segmented_scan_reverse(i, tf, "sum")
+    assert kscan.BYTES - before == kscan.scan_bytes(N, 4, True)
+    assert kscan.segmented_scan_reverse(i[:0], tf[:0]).shape == (0,)
+    with pytest.raises(ValueError):
+        kscan.segmented_scan_reverse(i, tf, "prod")
+    with pytest.raises(TypeError):
+        kscan.segmented_scan_reverse(i.to(torch.int16), tf, "sum")
+    with pytest.raises(ValueError):
+        kscan.segmented_scan_reverse(i, tf[:4], "sum")

@@ -1399,6 +1399,8 @@ COUNTER = "a program counter the benchmark reads, no tensor"
 EXCLUDED = {
     "ops/sort.py:STAGED_BYTES": COUNTER,
     "pipeline/plan.py:TAIL_ROWS": COUNTER,
+    "ops/aggregate.py:REDUCED_ROWS": COUNTER,
+    "ops/aggregate.py:ONE_PASS_ROWS": COUNTER,
     "ops/scan.py:ENGINES": CONFIG,
     "ops/filter.py:compaction_config": CONFIG,
     "ops/partition.py:HASH_MUL": CONFIG,
