@@ -20,6 +20,13 @@ into a buffer after the previous copy out of it.
 'h2d' (host to card copies), 'device' (sorts or joins on the card), 'd2h'
 (card to host copies) and 'merge' (the host merge), synchronising the card
 between the parts. Without it nothing extra synchronises.
+
+Tracing: while a profiler runs, each part runs inside a
+``record_function`` range: ``external.h2d``, ``external.sort`` (the
+join's ``external.join``), ``external.d2h`` and ``external.merge``. These
+add no synchronisation. :data:`LINK_BYTES` counts the bytes of every copy
+between host and card and :data:`MERGED_ROWS` the rows of every host
+merge, on the card and off it.
 """
 
 from __future__ import annotations
@@ -36,20 +43,36 @@ from cuda.radixsort_tpu_torch import config as config_lib
 from cuda.radixsort_tpu_torch.ops.join import join as _join
 from cuda.radixsort_tpu_torch.ops.sort import sort as _sort
 from cuda.radixsort_tpu_torch.ops.sort import sort_pairs as _sort_pairs
-from cuda.radixsort_tpu_torch.utils import native
+from cuda.radixsort_tpu_torch.utils import native, profiling
 from cuda.radixsort_tpu_torch.utils.convert import from_numpy, to_numpy
 from cuda.radixsort_tpu_torch.utils.profiling import traced
 
 _PARTS = ("h2d", "device", "d2h", "merge")
 
+# Bytes of every copy between host and card made by the parts 'h2d' and
+# 'd2h' (each the bytes that cross the host link once). The benchmark's
+# external.link_roofline_pct reads its delta.
+LINK_BYTES = 0
+# Rows written by every host merge (the merged output's length).
+MERGED_ROWS = 0
+
+
+def _count_link(nbytes: int) -> None:
+    global LINK_BYTES
+    LINK_BYTES += nbytes
+
 
 class _Mover:
-    """Moves 4-byte host arrays to the device and back as u32 bits, and
-    adds each part's seconds to ``timings`` when one is given."""
+    """Moves 4-byte host arrays to the device and back as u32 bits, opens
+    each part's range while a profiler runs, and adds each part's seconds
+    to ``timings`` when one is given. ``work`` names the device part's
+    range: ``external.<work>``."""
 
-    def __init__(self, device, timings: dict | None):
+    def __init__(self, device, timings: dict | None, work: str = "sort"):
         self.device = torch.device(device)
         self.timings = timings
+        self._ranges = {"h2d": "external.h2d", "device": "external." + work,
+                        "d2h": "external.d2h", "merge": "external.merge"}
         if timings is not None:
             for part in _PARTS:
                 timings.setdefault(part, 0.0)
@@ -61,14 +84,17 @@ class _Mover:
 
     @contextlib.contextmanager
     def part(self, name: str):
-        if self.timings is None:
+        span = (torch.profiler.record_function(self._ranges[name])
+                if profiling._profiling() else profiling._NO_RANGE)
+        with span:
+            if self.timings is None:
+                yield
+                return
+            self._sync()
+            t0 = time.perf_counter()
             yield
-            return
-        self._sync()
-        t0 = time.perf_counter()
-        yield
-        self._sync()
-        self.timings[name] += time.perf_counter() - t0
+            self._sync()
+            self.timings[name] += time.perf_counter() - t0
 
     def _staging(self, slot: str, rows: int) -> torch.Tensor:
         """The pinned int32 host buffer of ``slot``, at least ``rows`` long."""
@@ -81,6 +107,7 @@ class _Mover:
     def to_device(self, a: np.ndarray, slot: str = "k") -> torch.Tensor:
         """A u32 tensor on the device with the bits of 4-byte array ``a``."""
         a32 = np.ascontiguousarray(a).view(np.int32)
+        _count_link(a32.nbytes)
         with self.part("h2d"):
             if self.device.type != "cuda":
                 t = torch.from_numpy(a32.copy())
@@ -94,6 +121,7 @@ class _Mover:
                 ) -> np.ndarray:
         """The bits of 4-byte tensor ``t`` as a u32 array (into ``out``)."""
         t32 = t.view(torch.int32)
+        _count_link(t32.numel() * 4)
         with self.part("d2h"):
             if t32.device.type != "cuda":
                 a = t32.numpy().view(np.uint32)
@@ -108,9 +136,11 @@ class _Mover:
                 a = out
         return a
 
-    def merge(self, *args, **kw):
+    def merge(self, runs, *args, **kw):
+        global MERGED_ROWS
+        MERGED_ROWS += sum(r.shape[0] for r in runs)
         with self.part("merge"):
-            return native.kway_merge_u32(*args, **kw)
+            return native.kway_merge_u32(runs, *args, **kw)
 
 
 def _check_u32(name: str, keys: np.ndarray) -> None:
@@ -384,8 +414,9 @@ def join_external(
         raise ValueError(f"join_external: probe_idx is int32, so at most 2^31 "
                          f"probe rows; got {nprobe}")
     dev = torch.device(device)
-    mv = _Mover(dev, timings)
+    mv = _Mover(dev, timings, work="join")
     bk = mv.to_device(build_keys, "b")
+    _count_link(build_vals.nbytes)
     with mv.part("h2d"):
         bv = from_numpy(build_vals, dev)
     total = 0
@@ -401,6 +432,7 @@ def join_external(
         if materialize:
             c = int(cnt)
             out_k.append(mv.to_host(ok[:c]))
+            _count_link(c * (ov.element_size() + oi.element_size()))
             with mv.part("d2h"):
                 out_v.append(to_numpy(ov[:c]))
                 out_i.append(to_numpy(oi[:c] + lo))

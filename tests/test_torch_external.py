@@ -8,10 +8,13 @@ run, no merge). Sorts, payloads, counts and checksums must match bit for
 bit, and the stable pair sort must equal numpy's stable argsort.
 """
 
+import collections
+import contextlib
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from cuda.radixsort_tpu.ops import external as jext
 from cuda.radixsort_tpu_torch.ops import external as text
@@ -59,6 +62,36 @@ def test_timings_split_the_parts():
     text.sort_external(keys, chunk=1000, timings=t, **CPU)
     assert set(t) == {"h2d", "device", "d2h", "merge"}
     assert all(v >= 0 for v in t.values()) and t["merge"] > 0
+
+
+RANGES = ("external.h2d", "external.sort", "external.d2h", "external.merge")
+
+
+@pytest.mark.parametrize("profiled", [True, False])
+@pytest.mark.parametrize("n, chunk", [(3000, 1000), (700, 1000)])
+def test_ranges_and_counters(n, chunk, profiled):
+    """Each part opens its range while a profiler runs, with timings= and
+    without (the merge only with two or more runs); the counters count
+    either way; timings= keeps its four keys."""
+    keys = _keys(n, 6)
+    runs = -(-n // chunk)
+    link, merged = text.LINK_BYTES, text.MERGED_ROWS
+    t = {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) if profiled \
+            else contextlib.nullcontext() as prof:
+        for timings in (None, t):
+            got = text.sort_external(keys, chunk=chunk, timings=timings,
+                                     **CPU)
+            np.testing.assert_array_equal(got, np.sort(keys))
+    assert set(t) == {"h2d", "device", "d2h", "merge"}
+    assert text.LINK_BYTES - link == 2 * 2 * 4 * n
+    assert text.MERGED_ROWS - merged == (2 * n if runs > 1 else 0)
+    if profiled:
+        opened = collections.Counter(e.name for e in prof.events()
+                                     if e.name.startswith("external."))
+        want = dict(zip(RANGES, (runs, runs, runs, int(runs > 1))))
+        assert opened == {k: 2 * v for k, v in want.items() if v}
 
 
 @pytest.mark.parametrize("n, chunk", [(0, 16), (5, 16), (3001, 16),

@@ -1389,18 +1389,27 @@ SWEPT = ("ops/sort.py", "ops/segmented.py", "ops/merge.py", "ops/setops.py",
          "ops/partition.py", "ops/unique.py", "ops/select.py",
          "ops/histogram.py", "ops/window.py", "ops/comparator_sort.py",
          "table.py", "pipeline/plan.py", "pipeline/query.py", "cub_compat.py",
-         "thrust_compat.py", "models/flagships.py")
+         "thrust_compat.py", "models/flagships.py", "ops/external.py")
 # classes whose public methods count as names of their own
 METHOD_CLASSES = {"table.py": ("Table",), "pipeline/plan.py": ("Query",),
                   "cub_compat.py": "*"}
 CONFIG = "configuration, no tensor"
 DISTRIBUTED = "chip_smoke.py phase 6d (distributed) and the gloo tests"
 COUNTER = "a program counter the benchmark reads, no tensor"
+EXTERNAL = ("host arrays in and out: tests/test_torch_external.py and "
+            "chip_smoke.py's external phase")
 EXCLUDED = {
     "ops/sort.py:STAGED_BYTES": COUNTER,
     "pipeline/plan.py:TAIL_ROWS": COUNTER,
     "ops/aggregate.py:REDUCED_ROWS": COUNTER,
     "ops/aggregate.py:ONE_PASS_ROWS": COUNTER,
+    "ops/external.py:LINK_BYTES": COUNTER,
+    "ops/external.py:MERGED_ROWS": COUNTER,
+    "ops/external.py:sort_external": EXTERNAL,
+    "ops/external.py:sort_external_pairs": EXTERNAL,
+    "ops/external.py:sort_external_file": EXTERNAL,
+    "ops/external.py:sort_external_pairs_file": EXTERNAL,
+    "ops/external.py:join_external": EXTERNAL,
     "ops/scan.py:ENGINES": CONFIG,
     "ops/filter.py:compaction_config": CONFIG,
     "ops/partition.py:HASH_MUL": CONFIG,
